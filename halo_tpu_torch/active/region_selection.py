@@ -1,0 +1,150 @@
+"""Active-learning round: sweep the target set, score, select, persist.
+
+Port of ``halo_tpu/active/region_selection.py:75-371``. For every batch of
+target images: one eval forward (no grad, autocast in the model's compute
+dtype); then, per image at its own native size, the entropy x radius region
+score with the upsample folded in, greedy picks of
+ceil(H*W*budget_round/(2r+1)^2) regions (kernel A), and the mask replay.
+Each updated mask and indicator is published to the in-process cache at
+once and written to disk on a background thread, overlapped with the next
+batch; the round waits for every write and raises on any failure.
+
+The port runs eagerly, so it needs no compiled-program cache, no padding of
+the last batch and no grouping of batches by native size.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..data import mask_cache
+from ..data.masks import save_indicator, save_mask_png
+from ..device import resolve_device
+from ..engine.steps import make_forward
+from .scoring import fused_upsample_region_score
+from .selection import cuda_select_pixels_to_label
+
+
+def _persist(mask, active, selected, mask_path, ind_path):
+    save_mask_png(mask.astype(np.uint8), mask_path)
+    save_indicator({"active": active, "selected": selected}, ind_path)
+
+
+def region_selection(cfg, model, active_loader, round_number: int,
+                     progress: bool = True, device=None,
+                     stage_seconds: Optional[Dict[str, float]] = None):
+    """Run one acquisition round over ``active_loader``; returns
+    ``{'images', 'picked', 'labeled_px'}``.
+
+    device: where the round runs — CUDA unless the caller passes another
+    (``model`` must already live there). stage_seconds: when a dict is
+    given, the round synchronises the device at stage boundaries and adds
+    the seconds of 'load' (waiting for the loader), 'forward', 'score',
+    'select', 'host' (fetching and publishing the results) and 'persist'
+    (the wait for the last file writes) to it.
+    """
+    dev = resolve_device(device)
+    unc_type = cfg.ACTIVE.UNCERTAINTY
+    pur_type = cfg.ACTIVE.PURITY
+    if unc_type == "random":
+        raise NotImplementedError(
+            "ACTIVE.UNCERTAINTY 'random' (seeded noise scores) is not ported "
+            "yet (ROADMAP.md Queue 1 item 8)")
+    if cfg.ACTIVE.VIZ_MASK:
+        raise NotImplementedError(
+            "ACTIVE.VIZ_MASK plots are not ported yet (ROADMAP.md Queue 1 "
+            "item 12)")
+    per_region_pixels = (2 * cfg.ACTIVE.RADIUS_K + 1) ** 2
+    active_radius = cfg.ACTIVE.RADIUS_K
+    mask_radius = cfg.ACTIVE.MASK_RADIUS_K
+    budget_round = cfg.ACTIVE.BUDGET / len(cfg.ACTIVE.SELECT_ITER)
+    score_opts = dict(unc_type=unc_type, pur_type=pur_type,
+                      size=2 * active_radius + 1,
+                      num_classes=cfg.MODEL.NUM_CLASSES, K=cfg.ACTIVE.K,
+                      normalize=bool(cfg.ACTIVE.NORMALIZE),
+                      c=float(cfg.MODEL.CURVATURE))
+    needs_embed = (pur_type in ("hyper", "radius", "euc_norm")
+                   or unc_type in ("certainty", "hyperbolic")
+                   or (unc_type == "none" and cfg.MODEL.HYPER))
+    gt_needed = unc_type == "oracle_acc" or pur_type == "oracle_ripu"
+    score_dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[
+        str(getattr(cfg.TPU, "SCORING_DTYPE", "bfloat16"))]
+    forward = make_forward(model)
+
+    clock = {"t": time.perf_counter()}
+
+    def lap(stage):
+        if stage_seconds is None:
+            return
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        now = time.perf_counter()
+        stage_seconds[stage] = (stage_seconds.get(stage, 0.0)
+                                + now - clock["t"])
+        clock["t"] = now
+
+    stats = {"images": 0, "picked": 0, "labeled_px": 0}
+    io_pool = ThreadPoolExecutor(max_workers=4)
+    io_futures = []
+    try:
+        for batch in active_loader:
+            lap("load")
+            imgs = torch.as_tensor(np.asarray(batch["img"]), device=dev)
+            with torch.no_grad():
+                logits, embed = forward(imgs)
+            lap("forward")
+            for b in range(imgs.shape[0]):
+                size = tuple(int(s) for s in batch["size"][b])
+                num_picks = math.ceil(size[0] * size[1] * budget_round
+                                      / per_region_pixels)
+
+                def field(key, dtype):
+                    return torch.as_tensor(np.asarray(batch[key][b]),
+                                           device=dev).to(dtype)
+
+                gt = field("origin_label", torch.int32)
+                emb = embed[b] if needs_embed else None
+                with torch.no_grad():
+                    score, _, _ = fused_upsample_region_score(
+                        logits[b], emb, size, gt if gt_needed else None,
+                        score_dtype=score_dtype, **score_opts)
+                    lap("score")
+                    res = cuda_select_pixels_to_label(
+                        score, field("origin_mask", torch.int32), gt,
+                        field("active", torch.bool),
+                        field("selected", torch.bool), num_picks=num_picks,
+                        active_radius=active_radius, mask_radius=mask_radius)
+                    lap("select")
+                mask_np = res.active_mask.to(torch.uint8).cpu().numpy()
+                active_np = res.active.cpu().numpy()
+                selected_np = res.selected.cpu().numpy()
+                mask_cache.put_mask(batch["path_to_mask"][b], mask_np)
+                mask_cache.put_indicator(batch["path_to_indicator"][b],
+                                         {"active": active_np,
+                                          "selected": selected_np})
+                io_futures.append(io_pool.submit(
+                    _persist, mask_np, active_np, selected_np,
+                    batch["path_to_mask"][b], batch["path_to_indicator"][b]))
+                stats["images"] += 1
+                stats["picked"] += int(res.num_picked)
+                # this round's labeling: selected accumulates over rounds
+                stats["labeled_px"] += (
+                    int(selected_np.sum())
+                    - int(np.asarray(batch["selected"][b]).sum()))
+                if progress and stats["images"] % 200 == 0:
+                    print(f"  [round {round_number}] {stats['images']} "
+                          "images scored", flush=True)
+                lap("host")
+        io_pool.shutdown(wait=True)  # all masks durable before returning
+        lap("persist")
+    finally:
+        io_pool.shutdown(wait=True)
+    for f in io_futures:
+        f.result()  # surface persist failures
+    return stats

@@ -1,0 +1,211 @@
+"""Default configuration schema of the PyTorch port.
+
+A copy of ``halo_tpu/config/defaults.py`` with the same keys and values, so
+the shipped recipe YAMLs and ``-cfg PATH [KEY VALUE ...]`` overrides merge
+unchanged into either package. The ``TPU`` section is kept whole for that
+reason; the keys the port does not read are marked below.
+"""
+
+from .node import CfgNode as CN
+
+_C = CN()
+
+_C.MODEL = CN()
+_C.MODEL.NAME = "deeplabv3plus_resnet101"
+_C.MODEL.NUM_CLASSES = 19
+_C.MODEL.WEIGHTS = "https://download.pytorch.org/models/resnet101-5d3b4d8f.pth"
+_C.MODEL.FREEZE_BN = True
+_C.MODEL.HYPER = True
+_C.MODEL.CURVATURE = 1.0
+_C.MODEL.REDUCED_CHANNELS = 64
+_C.MODEL.HFR = True
+
+_C.WANDB = CN()
+_C.WANDB.ENABLE = False
+_C.WANDB.GROUP = "deeplabv2_r101_pretrain"
+_C.WANDB.PROJECT = "active_domain_adapt"
+_C.WANDB.ENTITY = "pinlab-sapienza"
+
+_C.INPUT = CN()
+_C.INPUT.SOURCE_INPUT_SIZE_TRAIN = (1280, 720)
+_C.INPUT.TARGET_INPUT_SIZE_TRAIN = (1280, 640)
+_C.INPUT.INPUT_SIZE_TEST = (1280, 640)
+_C.INPUT.INPUT_SCALES_TRAIN = (1.0, 1.0)
+_C.INPUT.IGNORE_LABEL = 255
+_C.INPUT.PIXEL_MEAN = [0.485, 0.456, 0.406]
+_C.INPUT.PIXEL_STD = [0.229, 0.224, 0.225]
+# Convert image to BGR format (for Caffe2 models), in range 0-255
+_C.INPUT.TO_BGR255 = False
+
+_C.DATASETS = CN()
+_C.DATASETS.SOURCE_TRAIN = ""
+_C.DATASETS.TARGET_TRAIN = ""
+_C.DATASETS.TEST = ""
+
+_C.SOLVER = CN()
+# Reference semantics: the list of data-parallel devices; per-rank iteration
+# counts scale by len(GPUS) (reference: core/train_learners.py:181). On TPU
+# this is the list of mesh data-axis indices; len(SOLVER.GPUS) = #chips.
+_C.SOLVER.GPUS = [0, 1, 2, 3]
+_C.SOLVER.NUM_ITER = 60000
+
+_C.SOLVER.LR_METHOD = "poly"
+_C.SOLVER.BASE_LR = 1e-3
+_C.SOLVER.LR_POWER = 0.5
+_C.SOLVER.MOMENTUM = 0.9
+_C.SOLVER.WEIGHT_DECAY = 0.0005
+_C.SOLVER.WARMUP_ITERS = 600
+
+_C.SOLVER.BATCH_SIZE = 2
+_C.SOLVER.BATCH_SIZE_VAL = 1
+
+_C.SOLVER.CONSISTENT_LOSS = 0.0
+_C.SOLVER.NEGATIVE_LOSS = 1.0
+_C.SOLVER.NEGATIVE_THRESHOLD = 0.05
+
+_C.SOLVER.LCR_TYPE = "l1"
+
+_C.ACTIVE = CN()
+_C.ACTIVE.UNCERTAINTY = "entropy"
+_C.ACTIVE.PURITY = "hyper"
+_C.ACTIVE.SELECT_ITER = [0, 15000, 30000, 40000, 50000]
+_C.ACTIVE.BUDGET = 0.05
+_C.ACTIVE.RADIUS_K = 1
+_C.ACTIVE.NORMALIZE = True
+_C.ACTIVE.MASK_RADIUS_K = 5
+_C.ACTIVE.K = 100
+_C.ACTIVE.VIZ_MASK = False
+
+_C.TEST = CN()
+_C.TEST.BATCH_SIZE = 1
+# Schema-compatibility key: the reference defines TEST.VIZ_SCORE but never
+# reads it (reference: core/configs/defaults.py:87, no consumer); kept so
+# the reference's test.yaml recipes merge cleanly.
+_C.TEST.VIZ_SCORE = False
+_C.TEST.VIZ_WRONG = False
+_C.TEST.SAVE_EMBED = False
+
+_C.NAME = "debug"
+_C.OUTPUT_DIR = ""
+_C.resume = ""
+_C.SEED = -1
+_C.DEBUG = False
+_C.PROTOCOL = "source_target"
+
+# ---------------------------------------------------------------------------
+# TPU-native additions (absent from the reference; defaults keep behavior
+# identical to the reference recipes unless explicitly overridden).
+# ---------------------------------------------------------------------------
+_C.TPU = CN()
+# In the PyTorch port, TPU.PALLAS_SELECTION, STENCIL_TRAIN, DENSE_CONV_MODE,
+# CONV_WGRAD, FUSED_UPSAMPLE and the QUANT_* keys have no effect: greedy
+# selection always runs the CUDA kernel on a GPU (active/cuda_select.py),
+# convolutions always go through nn.Conv2d, and the acquisition round
+# always folds the upsample into the score. They stay in the schema so the
+# same YAMLs load in both packages.
+# Compute dtype for the backbone/classifier ("bfloat16" or "float32").
+_C.TPU.COMPUTE_DTYPE = "bfloat16"
+# Hyperbolic-head compute dtype. The reference runs the Poincare head in
+# float64 (reference: core/models/classifier.py:553-554); TPUs emulate f64
+# slowly, so the default is float32 with f32 accumulations (validated against
+# an x64 golden path in tests).
+_C.TPU.HYPER_DTYPE = "float32"
+# Mesh axis sizes: data parallelism over ICI. -1 = use all local devices.
+_C.TPU.DATA_PARALLEL = -1
+# Spatial model parallelism for the acquisition scoring map (rarely needed).
+_C.TPU.SPATIAL_PARALLEL = 1
+# Dtype of the native-resolution logits/embedding maps fed to acquisition
+# scoring. "bfloat16" (default) halves the HBM traffic of the
+# bandwidth-bound score chain (~1.6x throughput measured on v5e);
+# accumulations (softmax, entropy sums, norms, min-max) stay float32.
+# Set "float32" for bit-reproducible score maps; the selected masks differ
+# only where scores are within bf16 rounding of each other (the score is
+# a sampling heuristic — see tests/test_active.py bf16 agreement test).
+_C.TPU.SCORING_DTYPE = "bfloat16"
+# Run greedy selection as the VMEM-resident Pallas kernel (XLA loop when
+# False or when not running on TPU hardware).
+_C.TPU.PALLAS_SELECTION = True
+# Host data-loader worker threads.
+_C.TPU.LOADER_WORKERS = 4
+# Input pipeline backend: "threads" (built-in prefetching loader) or
+# "grain" (multiprocess Grain DataLoader; identical sample streams).
+_C.TPU.LOADER = "threads"
+# Rematerialize backbone blocks in backward (more FLOPs, much less
+# activation memory -> larger per-chip batches).
+_C.TPU.REMAT = False
+# Shifted-MAC depthwise stencil in TRAIN mode (custom VJP, layers.py:
+# depthwise_stencil). Eval always uses the stencil; False reverts
+# training to XLA's grouped-conv path.
+_C.TPU.STENCIL_TRAIN = True
+# Lowering for the trunk/head dense stride-1 3x3 convs: "conv" (XLA's
+# native emitter), "shift9" (9 shifted channel GEMMs, custom VJP —
+# layers.py:dense_stencil), "s2b" (space-to-batch around an undilated
+# conv, dilated trunk convs only), or "pallas" (VMEM-resident Pallas tap
+# GEMMs for the dilated trunk convs, ops/pallas_conv.py; falls back to
+# "conv" where unsupported). "conv" is the measured default: shift9 wins
+# 1.3-1.6x in isolation but loses ~25% inside the full trunk (its dots
+# re-read the block input from HBM), and pallas wins slightly isolated
+# but loses 2.3x in the trunk (each pallas_call is a fusion barrier +
+# unpipelined whole-map DMA). bench_dilated_conv.py records all
+# variants, isolated and in-context.
+_C.TPU.DENSE_CONV_MODE = "conv"
+# Fold the acquisition sweep's native-res upsample into the score stage
+# (fused_upsample_region_score): the (H, W, C) native logits/embedding
+# never materialize in HBM (~700 MB/image saved); score maps agree with
+# the materializing path to f32 ULP and greedy masks bit-for-bit
+# (tests/test_active.py). False reverts to resize-then-score (reference
+# structure, build.py:122-144).
+_C.TPU.FUSED_UPSAMPLE = True
+# Weight-grad lowering for the dense stride-1 convs: "gemm" (custom VJP —
+# XLA emitter fwd/dgrad, kh*kw shifted big-K GEMMs for the weight grad;
+# XLA's own wgrad of the dilated trunk convs measures 1.6x their forward)
+# or "conv" (XLA autodiff end-to-end). See models/layers.py:CONV_WGRAD.
+_C.TPU.CONV_WGRAD = "gemm"
+# Images per device dispatch during acquisition scoring (the reference
+# sweeps batch=1, core/train_learners.py:282-289; any value yields
+# identical masks). Every image in one dispatch must share a native
+# resolution; for mixed-resolution active sets the active loader groups
+# batches by size automatically at any ACTIVE_BATCH (data/build.py
+# group_by_size, tested by test_engine.py::test_mixed_resolution_fit),
+# so no manual fallback to 1 is needed.
+# Post-training int8 (W8A8) eval path: route the stride-1 ungrouped
+# convs (the dilated trunk minus the stem, plus the decoder's dense
+# convs) through symmetric int8 on the MXU's double-rate s8 pipeline
+# (394 vs 197 bf16 TOPS on v5e; measured 1.7-2.0x at these shapes —
+# benchmarks/bench_int8.py). Inference-serving knob: requires a
+# calibration pass (halo_tpu.ops.quant.calibrate) before eval, adds a
+# `quant` variable collection, and changes numerics (per-tensor act /
+# per-channel weight symmetric quantization); the training protocols and
+# every reference-parity surface keep the float path.
+_C.TPU.QUANT_EVAL = False
+# Calibration batches fed through the model to set the PTQ activation
+# absmax (TestLearner._calibrate_quant) before a QUANT_EVAL eval. Batches
+# are drawn from the TARGET TRAIN split under the test transform (never
+# the eval split being scored).
+_C.TPU.QUANT_CALIB_BATCHES = 2
+# Force recalibration even when the restored checkpoint already carries
+# calibrated PTQ scales (default: restored calibration is kept).
+_C.TPU.QUANT_RECALIBRATE = False
+# Run the acquisition sweep's eval forward through the int8 W8A8 path:
+# the sweep forward dominates round wall-clock (~15 of ~16 ms/img at
+# 1024x2048, benchmarks/README.md) and the int8 eval leg measures
+# 11.3 ms/img, so this trades a measured, bounded selection perturbation
+# (mask fidelity + endpoint parity in benchmarks/bench_int8_sweep.py)
+# for ~25% faster rounds. The learner builds a quantized twin of the
+# model lazily and PTQ-recalibrates it from the round's own target
+# images before every round (params move between rounds, and the frozen
+# int8 weights snapshot params as of calibration). Training itself and
+# every other surface keep the float path.
+_C.TPU.QUANT_SWEEP = False
+# In-training validation cadence in steps (the reference hardcodes
+# Lightning's val_check_interval=500, train.py:135); 0 disables.
+_C.TPU.VAL_INTERVAL = 500
+_C.TPU.ACTIVE_BATCH = 4
+# Directory with dataset roots (reference hardcodes "datasets"; the catalog
+# also honors the HALO_DATASET_DIR environment variable).
+_C.TPU.DATASET_DIR = "datasets"
+# Delete SAVE_DIR/gtMask + gtIndicator after training like the reference
+# (reference train.py:147-162). Default False: the mask store is the
+# acquisition state, and keeping it makes a preempted/crashed run
+# resumable (docs/PARITY.md documents the delta).
+_C.TPU.CLEANUP_MASKS = False

@@ -1,0 +1,17 @@
+"""Device selection for the port's entry points."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names
+    another. Raises when CUDA is asked for (or defaulted to) and absent —
+    the port never carries on quietly on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "halo_tpu_torch runs on a CUDA device and none is available; "
+            "pass device='cpu' to run on the CPU explicitly")
+    return dev

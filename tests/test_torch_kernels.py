@@ -1,0 +1,100 @@
+"""CUDA kernels against their plain versions, on the card (marker
+``cuda``; skipped without a GPU). Imports no JAX, so it also runs where
+JAX is absent:
+
+    python -m pytest --noconftest tests/test_torch_kernels.py
+"""
+
+import math
+
+import pytest
+import torch
+
+from halo_tpu_torch.active import cuda_radius, cuda_select
+from halo_tpu_torch.active import selection as tsel
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _ball(shape, gen, dtype):
+    x = torch.randn(shape, generator=gen, device="cuda")
+    r = 0.3 + 0.6 * torch.rand(shape[:-1] + (1,), generator=gen,
+                               device="cuda")
+    return (x / x.norm(dim=-1, keepdim=True) * r).to(dtype)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((3, 5, 64), torch.bfloat16),     # 16-byte loads, 8 chunks a pixel
+    ((7, 13, 24), torch.bfloat16),    # 3 chunks: lanes idle
+    ((5, 9, 20), torch.bfloat16),     # C % 8 != 0: scalar loop
+    ((4, 6, 64), torch.float32),
+    ((1, 1, 8), torch.bfloat16),      # fewer pixels than a block
+])
+def test_radius_matches_plain(gen, shape, dtype):
+    x = _ball(shape, gen, dtype)
+    before = cuda_radius.launches
+    got = cuda_radius.radius_map(x)
+    want = cuda_radius.radius_map_reference(x)
+    assert cuda_radius.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+def test_radius_unaligned_view(gen):
+    buf = _ball((9, 24), gen, torch.bfloat16).reshape(-1)
+    x = buf[3:3 + 8 * 24].view(8, 24)  # 6-byte offset: scalar loads
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    torch.testing.assert_close(cuda_radius.radius_map(x),
+                               cuda_radius.radius_map_reference(x),
+                               rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("h,w,n,m", [
+    (64, 96, 40, 3),
+    (5, 40, 12, 2),        # fewer rows than a warp
+    (16, 7000, 30, 5),     # > 48 KB of column cache
+    (33, 50, 25, 0),       # m = 0: single-pixel suppression
+])
+def test_greedy_picks_bit_exact(gen, h, w, n, m):
+    score = torch.randn((h, w), generator=gen, device="cuda")
+    score[: h // 4, : w // 4] = float("-inf")
+    score[h // 2: h // 2 + 3, w // 3: w // 3 + 4] = 3.0  # ties
+    before = cuda_select.launches
+    got = cuda_select.greedy_picks(score, num_picks=n, mask_radius=m)
+    want = cuda_select.greedy_picks_reference(score, num_picks=n,
+                                              mask_radius=m)
+    assert cuda_select.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_greedy_picks_runs_out(gen):
+    score = torch.full((20, 30), float("-inf"), device="cuda")
+    score[3, 4], score[15, 25], score[15, 27] = 1.0, 2.0, 2.0
+    picks, n = cuda_select.greedy_picks(score, num_picks=8, mask_radius=2)
+    assert int(n) == 2
+    assert picks[:2].tolist() == [[15, 25], [3, 4]]
+    assert (picks[2:] == -1).all()
+
+
+def test_select_pixels_matches_plain_twin(gen):
+    h, w = 48, 80
+    score = torch.randn((h, w), generator=gen, device="cuda")
+    gt = torch.randint(0, 19, (h, w), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    am = torch.full((h, w), 255, dtype=torch.int32, device="cuda")
+    active = torch.zeros((h, w), dtype=torch.bool, device="cuda")
+    active[:5, :9] = True
+    selected = torch.zeros_like(active)
+    n = math.ceil(h * w * 0.05 / 9)
+    kw = dict(num_picks=n, active_radius=1, mask_radius=5)
+    got = tsel.cuda_select_pixels_to_label(score, am, gt, active, selected,
+                                           **kw)
+    want = tsel.select_pixels_to_label(score, am, gt, active, selected, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
