@@ -15,7 +15,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
              bit-exact, on a 1024x2048 map with 2331 picks, m = 5, a
              pre-active block and a tie plateau, plus an early-stop case;
              times both.
-  4. slice   the acquisition round of configs/gtav/source_target.yaml
+  4. conv    kernel C (the dilated 3x3 conv) against its plain version,
+             forward and dx through autograd, at the train step's shapes
+             (B = 2, 90x160: 256 ch d=2, 512 ch d=2, 512 ch d=4, bf16;
+             256 ch d=2 float32): bf16 within one bf16 step beyond 1e-5
+             of max|out|, f32 within 1e-5 of max|out|; times kernel (fwd
+             and dx), plain version and F.conv2d (cuDNN).
+  5. slice   the acquisition round of configs/gtav/source_target.yaml
              (DeepLab-v3+ R101, hyperbolic head with HFR, 640x1280 input,
              entropy x radius, 1% a round) from a seeded random init over a
              synthetic 1024x2048 Cityscapes tree: 2331 picks an image,
@@ -23,6 +29,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
              on the path (launch counters), ms/img by stage; then kernel A
              held bit-exact and kernel B within 1e-6 against their plain
              versions on the first image's real score map and embedding.
+  6. train   halo_tpu_torch.train.main on the same recipe with
+             TPU.DENSE_CONV_MODE pallas (source 2x720x1280, target
+             2x640x1280) over synthetic GTAV (1914x1052) and Cityscapes
+             trees: round 1 at step 0, 8 train steps, validation on
+             2 images, checkpoints. Checks masks, finite losses, moved
+             parameters and unchanged FrozenBN buffers, kernel C's
+             launches (50 forward + 50 dx a step) and A's and B's, the
+             mIoU, last.ckpt loading with strict=True, and kernel C on
+             the first step's real layer3/layer4 activations and
+             cotangents; prints ms/step (median of steps 3-8), stages and
+             peak memory, then ms/step with TPU.DENSE_CONV_MODE conv.
 
 Prints the kernels JSON line, the card's name and power limit
 (nvidia-smi), and as the last line
@@ -45,32 +62,40 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 DEVICE = "cuda"
 CONFIG = REPO / "configs" / "gtav" / "source_target.yaml"
+TRAIN_STEPS = 8  # train steps of the train phase; ms/step is over 3-8
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and the float32
-# rate outside the tensor cores.
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, the float32
+# rate outside the tensor cores and the dense bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple:
+def bound_ms(nbytes: float, flops: float,
+             flop_rate: float = F32_FLOP_PER_S) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
-    """Mean ms of fn(i) over ``iters`` launches, by CUDA events."""
+    """Median ms of fn(i) over ``iters`` launches, each between its own
+    pair of CUDA events. The launches queue behind a spin kernel of
+    ~0.1 s, so the device runs them back to back and a kernel shorter than
+    the host's launch gap is timed alone, not with the gap."""
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda._sleep(200_000_000)  # clock cycles
+    for i, (start, end) in enumerate(events):
+        start.record()
         fn(i)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+        end.record()
+    torch.cuda.synchronize()
+    times = sorted(s.elapsed_time(e) for s, e in events)
+    return times[len(times) // 2]
 
 
 def max_rel(torch, got, want) -> float:
@@ -181,9 +206,104 @@ def phase_select(torch, gen, report, num_picks=2331, m=5):
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
-def write_cityscapes(root: Path, n_images: int, seed: int):
-    """A synthetic Cityscapes tree of 1024x2048 images: blocky random
-    colours and label ids (16x16 blocks), from ``seed``."""
+def bf16_steps(torch, got, want) -> tuple:
+    """(largest |got - want| in bf16 steps of the larger magnitude, the same
+    after forgiving 1e-5 of max|want|): near zero the order of the float32
+    sums decides which way a bf16 output rounds."""
+    got, want = got.float(), want.float()
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(2.0 ** -126)
+    step = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    diff = (got - want).abs()
+    floor = 1e-5 * float(want.abs().max())
+    return (float((diff / step).max()),
+            float(((diff - floor).clamp_min(0) / step).max()))
+
+
+def check_conv(torch, dc, x, wt, g, d, label) -> float:
+    """Kernel C's forward and dx against the plain version (dx through
+    autograd of each); returns the largest absolute difference. bf16: at
+    most one bf16 step apart beyond 1e-5 of max|out|; f32: within 1e-5 of
+    max|out|."""
+    xk = x.detach().clone().requires_grad_(True)
+    got = dc.dilated_conv3x3(xk, wt, d)
+    got.backward(g)
+    xp = x.detach().clone().requires_grad_(True)
+    want = dc.dilated_conv3x3_plain(xp, wt, d)
+    want.backward(g)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for part, a, e in (("fwd", got, want), ("dx", xk.grad, xp.grad)):
+        a, e = a.detach(), e.detach()
+        err = float((a.float() - e.float()).abs().max())
+        worst = max(worst, err)
+        if x.dtype == torch.bfloat16:
+            strict, floored = bf16_steps(torch, a, e)
+            ok = floored <= 1.0
+            detail = (f"{strict:.2f} bf16 steps ({floored:.2f} beyond "
+                      "1e-5 of max|out|)")
+        else:
+            rel = err / float(e.float().abs().max())
+            ok = rel <= 1e-5
+            detail = f"{rel:.2e} of max|out|"
+        print(f"conv {label} {part}: max abs diff {err:.3e}, {detail}",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"kernel C {part} off its plain version "
+                                 f"at {label}: {detail}")
+    return worst
+
+
+def phase_conv(torch, gen, report):
+    """Kernel C at the main path's shapes (B = 2, 90x160) against its plain
+    version, forward and dx; times kernel, plain version and cuDNN."""
+    import torch.nn.functional as F
+    from halo_tpu_torch.ops import dilated_conv as dc
+
+    cases = [(256, 2, torch.bfloat16), (512, 2, torch.bfloat16),
+             (512, 4, torch.bfloat16), (256, 2, torch.float32)]
+    worst = 0.0
+    rows = {}
+    for c, d, dtype in cases:
+        label = f"{c}ch d={d} {str(dtype).split('.')[-1]}"
+        x = torch.randn((2, c, 90, 160), generator=gen, device=DEVICE)
+        x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+        wt = (torch.randn((c, c, 3, 3), generator=gen, device=DEVICE)
+              / math.sqrt(9 * c)).to(dtype)
+        g = torch.randn((2, c, 90, 160), generator=gen, device=DEVICE)
+        g = g.to(dtype).contiguous(memory_format=torch.channels_last)
+        worst = max(worst, check_conv(torch, dc, x, wt, g, d, label))
+        wt_cl = wt.contiguous(memory_format=torch.channels_last)
+        wT = wt.flip(2, 3).transpose(0, 1)
+        with torch.no_grad():
+            ms = cuda_ms(torch, lambda i: dc._conv(x, wt, d, "fwd"), 50)
+            ms_dx = cuda_ms(torch, lambda i: dc._conv(g, wT, d, "dx"), 50)
+            plain = cuda_ms(
+                torch, lambda i: dc.dilated_conv3x3_plain(x, wt, d), 10)
+            lib = cuda_ms(torch, lambda i: F.conv2d(
+                x, wt_cl, padding=d, dilation=d), 50)
+        flops = 2 * 2 * 90 * 160 * 9 * c * c
+        nbytes = (2 * 2 * 90 * 160 * c + 9 * c * c) * x.element_size()
+        rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+        b_ms, b_by = bound_ms(nbytes, flops, rate)
+        print(f"conv {label} (2, {c}, 90, 160): kernel fwd {ms:.4f} ms, dx "
+              f"{ms_dx:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s fwd), plain "
+              f"{plain:.4f} ms, F.conv2d (cuDNN, channels_last) {lib:.4f} "
+              f"ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+        rows[label] = (ms, plain, b_ms, b_by, lib)
+    ms, plain, b_ms, b_by, lib = rows["256ch d=2 bfloat16"]
+    report["dilated_conv3x3"] = {
+        "name": "dilated_conv3x3", "route": "cuda",
+        "source": "halo_tpu_torch/csrc/dilated_conv.cu",
+        "replaces": "halo_tpu/ops/pallas_conv.py:150",
+        "launches": 0, "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+
+
+def write_cityscapes(root: Path, n_images: int, seed: int,
+                     split: str = "train"):
+    """A synthetic Cityscapes split of 1024x2048 images: blocky random
+    colours and label ids (16x16 blocks), from ``seed``; writes
+    ``cityscapes_<split>_list.txt``."""
     import numpy as np
     from PIL import Image
     from halo_tpu_torch.data.datasets import ID_TO_TRAINID_19
@@ -194,8 +314,8 @@ def write_cityscapes(root: Path, n_images: int, seed: int):
     for i in range(n_images):
         name = f"city{i}/city{i}_{i:06d}_000019_leftImg8bit.png"
         stem = name.split("_leftImg8bit")[0]
-        img_p = root / "cityscapes" / "leftImg8bit" / "train" / name
-        lab_p = (root / "cityscapes" / "gtFine" / "train"
+        img_p = root / "cityscapes" / "leftImg8bit" / split / name
+        lab_p = (root / "cityscapes" / "gtFine" / split
                  / f"{stem}_gtFine_labelIds.png")
         img_p.parent.mkdir(parents=True, exist_ok=True)
         lab_p.parent.mkdir(parents=True, exist_ok=True)
@@ -204,7 +324,42 @@ def write_cityscapes(root: Path, n_images: int, seed: int):
         Image.fromarray(img.repeat(16, 0).repeat(16, 1)).save(img_p)
         Image.fromarray(lab.repeat(16, 0).repeat(16, 1)).save(lab_p)
         names.append(name)
-    (root / "cityscapes_train_list.txt").write_text("\n".join(names) + "\n")
+    (root / f"cityscapes_{split}_list.txt").write_text("\n".join(names)
+                                                        + "\n")
+
+
+def write_gtav(root: Path, n_images: int, seed: int):
+    """A synthetic GTAV tree of 1052x1914 images and label ids (blocks of
+    2x2 pixels) with its own class-frequency table, ``gtav_label_info.p``,
+    from ``seed``."""
+    import pickle
+
+    import numpy as np
+    from PIL import Image
+    from halo_tpu_torch.data.datasets import ID_TO_TRAINID_19
+
+    rng = np.random.default_rng(seed)
+    ids = np.array(list(ID_TO_TRAINID_19), np.uint8)
+    gtav = root / "gtav"
+    (gtav / "images").mkdir(parents=True, exist_ok=True)
+    (gtav / "labels").mkdir(parents=True, exist_ok=True)
+    names, file_to_label = [], {}
+    for i in range(n_images):
+        name = f"{i:05d}.png"
+        img = rng.integers(0, 256, (526, 957, 3), np.uint8)
+        lab = rng.choice(ids, (526, 957))
+        Image.fromarray(img.repeat(2, 0).repeat(2, 1)).save(
+            gtav / "images" / name)
+        Image.fromarray(lab.repeat(2, 0).repeat(2, 1)).save(
+            gtav / "labels" / name)
+        names.append(name)
+        file_to_label[name] = sorted(
+            ID_TO_TRAINID_19[int(v)] for v in np.unique(lab))
+    label_to_file = [[n for n in names if c in file_to_label[n]]
+                     for c in range(19)]
+    with open(gtav / "gtav_label_info.p", "wb") as f:
+        pickle.dump((label_to_file, file_to_label), f)
+    (root / "gtav_train_list.txt").write_text("\n".join(names) + "\n")
 
 
 def summarize_profile(prof, wall_s: float, path: str):
@@ -359,14 +514,240 @@ def phase_slice(torch, args, report):
               f"max |t| diff {t_diff:.3e}", flush=True)
 
 
+def profile_steps(torch, learner, path: str, steps: int = 3):
+    """Device time of ``steps`` train steps on one fixed batch (no loader),
+    traced with torch.profiler; the trace goes next to ``path``."""
+    from torch.profiler import ProfilerActivity, profile
+    mode = learner.cfg.TPU.DENSE_CONV_MODE
+    loaders = learner.train_loaders()
+    batches = {k: learner._to_device(next(iter(v)))
+               for k, v in loaders.items()}
+    learner.train_step(batches)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            learner.train_step(batches)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print(f"profile: {steps} train steps ({mode}) on a fixed batch, "
+          f"{wall / steps * 1e3:.1f} ms/step", flush=True)
+    summarize_profile(prof, wall, str(Path(path).with_suffix(
+        f".train_{mode}.json")))
+
+
+def phase_train(torch, args, report):
+    """The source_target learner through halo_tpu_torch.train.main: round 1
+    at step 0, ``TRAIN_STEPS`` train steps, validation, checkpoints; then
+    the same steps with cuDNN convs for comparison."""
+    import gc
+    import statistics
+
+    from halo_tpu_torch import train
+    from halo_tpu_torch.active import cuda_radius, cuda_select
+    from halo_tpu_torch.data import mask_cache
+    from halo_tpu_torch.data.masks import load_indicator, load_mask_png
+    from halo_tpu_torch.engine.state import load_state_dict_file
+    from halo_tpu_torch.models import build_segmentor
+    from halo_tpu_torch.models.layers import (DilatedConv3x3,
+                                              FrozenBatchNorm2d)
+    from halo_tpu_torch.ops import dilated_conv as dc
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        data = root / "datasets"
+        t0 = time.perf_counter()
+        write_gtav(data, 4, args.seed)
+        write_cityscapes(data, args.images, args.seed)
+        write_cityscapes(data, 2, args.seed + 1, split="val")
+        print(f"train setup (synthetic GTAV and Cityscapes trees): "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        def argv(mode, steps, select, val, out):
+            return ["-cfg", str(CONFIG), "TPU.DENSE_CONV_MODE", mode,
+                    "MODEL.WEIGHTS", "", "resume", "",
+                    "ACTIVE.SELECT_ITER", select,
+                    "SOLVER.NUM_ITER", str(steps),
+                    "TPU.VAL_INTERVAL", str(val),
+                    "TPU.DATASET_DIR", str(data),
+                    "OUTPUT_DIR", str(root / out), "SEED", str(args.seed)]
+
+        captured = {}
+
+        def capture(module, inputs, output):
+            """The first train-mode call of a layer3 and a layer4 kernel-C
+            conv: its input, weight and (by a tensor hook) cotangent."""
+            if not (isinstance(module, DilatedConv3x3) and module.training
+                    and torch.is_grad_enabled()
+                    and module.in_channels not in captured):
+                return
+            entry = {"x": inputs[0].detach().to(torch.bfloat16).clone(),
+                     "w": module.weight.detach().to(torch.bfloat16).clone(),
+                     "d": module.dilation[0]}
+            captured[module.in_channels] = entry
+            output.register_hook(
+                lambda g: entry.__setitem__("g", g.detach().clone()))
+
+        handle = torch.nn.modules.module.register_module_forward_hook(
+            capture)
+        mask_cache.clear()
+        stages = {}
+        torch.cuda.reset_peak_memory_stats()
+        dc.launches_fwd = dc.launches_dx = dc.layout_copies = 0
+        cuda_radius.launches = cuda_select.launches = 0
+        t0 = time.perf_counter()
+        try:
+            learner = train.main(argv("pallas", TRAIN_STEPS, "[0]",
+                                      TRAIN_STEPS, "out"),
+                                 device=DEVICE, stage_seconds=stages)
+            torch.cuda.synchronize()
+        finally:
+            handle.remove()
+        wall = time.perf_counter() - t0
+        counts = {"fwd": dc.launches_fwd, "dx": dc.launches_dx,
+                  "layout_copies": dc.layout_copies,
+                  "radius_map": cuda_radius.launches,
+                  "greedy_picks": cuda_select.launches}
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        cfg = learner.cfg
+        print(f"train main path: {counts} launches in {wall:.1f} s; peak "
+              f"device memory {peak_gib:.2f} GiB", flush=True)
+
+        # Round 1: every mask and indicator written and consistent.
+        entries = learner.active_loader.dataset.data_list
+        for entry in entries:
+            mask = load_mask_png(entry["label_mask"])
+            ind = load_indicator(entry["indicator"])
+            if (mask.shape != (1024, 2048)
+                    or ind["selected"].shape != (1024, 2048)
+                    or (ind["selected"] & ~ind["active"]).any()
+                    or ((mask != 255) & ~ind["selected"]).any()
+                    or not (mask != 255).any()):
+                raise AssertionError(f"round 1: bad mask/indicator for "
+                                     f"{entry['name']}")
+        # The steps: finite loss terms.
+        hist = learner.history
+        if len(hist) != TRAIN_STEPS or not all(
+                math.isfinite(v) for rec in hist for k, v in rec.items()
+                if k.startswith(("loss", "negative"))):
+            raise AssertionError(f"train steps: {hist}")
+        print("losses: " + json.dumps(
+            [{k: round(v, 5) for k, v in rec.items()
+              if k.startswith(("loss", "negative"))} for rec in hist]),
+            flush=True)
+        # Every trainable parameter moved; every FrozenBN buffer did not.
+        before = load_state_dict_file(str(Path(cfg.SAVE_DIR)
+                                          / "model_before_round_1.ckpt"))
+        after = learner.model.state_dict()
+        still = [n for n, p in learner.model.named_parameters()
+                 if p.requires_grad and torch.equal(before[n],
+                                                    after[n].cpu())]
+        frozen = [n for n, m in learner.model.named_modules()
+                  if isinstance(m, FrozenBatchNorm2d)]
+        moved_buffers = [f"{n}.{b}" for n in frozen
+                         for b in ("weight", "bias", "running_mean",
+                                   "running_var")
+                         if not torch.equal(before[f"{n}.{b}"],
+                                            after[f"{n}.{b}"].cpu())]
+        n_params = sum(1 for p in learner.model.parameters()
+                       if p.requires_grad)
+        print(f"parameters moved: {n_params - len(still)} of {n_params}; "
+              f"FrozenBN buffers changed: {len(moved_buffers)} of "
+              f"{4 * len(frozen)}", flush=True)
+        if still or moved_buffers:
+            raise AssertionError(f"unmoved parameters {still[:5]}, changed "
+                                 f"FrozenBN buffers {moved_buffers[:5]}")
+        # Kernel C: 25 convs, forward and dx, in each of a step's two
+        # forwards; the round's and validation's forwards add 25 each.
+        n_conv = sum(isinstance(m, DilatedConv3x3)
+                     for m in learner.model.modules())
+        round_fwd = math.ceil(len(entries) / int(cfg.TPU.ACTIVE_BATCH))
+        val_fwd = 2
+        want_dx = 2 * n_conv * TRAIN_STEPS
+        want_fwd = want_dx + n_conv * (round_fwd + val_fwd)
+        print(f"kernel C: {n_conv} convs; {counts['fwd']} forward launches "
+              f"(want {want_fwd}: {2 * n_conv} a step + {n_conv} for each "
+              f"of {round_fwd} sweep and {val_fwd} validation forwards), "
+              f"{counts['dx']} dx (want {want_dx}: {2 * n_conv} a step); "
+              f"layout copies {counts['layout_copies'] / TRAIN_STEPS:.1f} "
+              "a step", flush=True)
+        if (n_conv != 25 or counts["fwd"] != want_fwd
+                or counts["dx"] != want_dx or counts["radius_map"] <= 0
+                or counts["greedy_picks"] <= 0):
+            raise AssertionError(f"kernel launches on the train path: "
+                                 f"{counts}")
+        report["dilated_conv3x3"]["launches"] = counts["fwd"] + counts["dx"]
+        # Validation and the checkpoint.
+        if not (math.isfinite(learner.best_miou) and learner.best_miou >= 0):
+            raise AssertionError(f"validation mIoU {learner.best_miou}")
+        fresh = build_segmentor(cfg, device=DEVICE)
+        fresh.load_state_dict(load_state_dict_file(
+            str(Path(cfg.SAVE_DIR) / "last.ckpt")), strict=True)
+        if not all(torch.equal(v, after[k])
+                   for k, v in fresh.state_dict().items()):
+            raise AssertionError("last.ckpt does not hold the final model")
+        print(f"validation mIoU {learner.best_miou:.4f} over 2 images; "
+              "last.ckpt loads back with strict=True", flush=True)
+        # Kernel C on the first step's real tensors.
+        worst = max(check_conv(torch, dc, e["x"], e["w"], e["g"], e["d"],
+                               f"train step 0, {name} conv2")
+                    for name, e in (("layer3", captured[256]),
+                                    ("layer4", captured[512])))
+        report["dilated_conv3x3"]["max_abs_err"] = max(
+            report["dilated_conv3x3"]["max_abs_err"], worst)
+
+        step_ms = [(a + b) * 1e3 for a, b in learner.step_seconds]
+        load_ms = [a * 1e3 for a, _ in learner.step_seconds]
+        n = len(step_ms)
+        print(f"train ms/step (pallas, kernel C): median of steps 3-{n} "
+              f"{statistics.median(step_ms[2:]):.1f} (loader wait "
+              f"{statistics.median(load_ms[2:]):.1f}), of steps 2-4 "
+              f"{statistics.median(step_ms[1:4]):.1f}; each step (load, "
+              "step) ms " + json.dumps([(round(a * 1e3, 1), round(b * 1e3, 1))
+                                       for a, b in learner.step_seconds]),
+              flush=True)
+        print("train stages, s over the run: " + json.dumps(
+            {k: round(v, 3) for k, v in stages.items()}), flush=True)
+        if args.profile:
+            profile_steps(torch, learner, args.profile)
+        del learner, fresh, captured, before, after
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        torch.cuda.reset_peak_memory_stats()
+        stages_conv = {}
+        learner = train.main(argv("conv", 4, "[]", 0, "out_conv"),
+                             device=DEVICE, stage_seconds=stages_conv)
+        torch.cuda.synchronize()
+        step_ms = [(a + b) * 1e3 for a, b in learner.step_seconds]
+        load_ms = [a * 1e3 for a, _ in learner.step_seconds]
+        print(f"train ms/step (conv, cuDNN): median of steps 2-4 "
+              f"{statistics.median(step_ms[1:4]):.1f} (loader wait "
+              f"{statistics.median(load_ms[1:4]):.1f}); each step (load, "
+              "step) ms " + json.dumps([(round(a * 1e3, 1), round(b * 1e3, 1))
+                                       for a, b in learner.step_seconds])
+              + f"; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+              "stages " + json.dumps(
+                  {k: round(v, 3) for k, v in stages_conv.items()}),
+              flush=True)
+        if args.profile:
+            profile_steps(torch, learner, args.profile)
+        del learner
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--images", type=int, default=8)
     parser.add_argument("--profile", metavar="TRACE.json",
-                        help="trace the round with torch.profiler, write "
-                        "the chrome trace here and print the device busy "
-                        "share and the top kernels")
+                        help="trace the round, and 3 train steps in each "
+                        "conv mode, with torch.profiler; write the chrome "
+                        "traces here (and beside it) and print the device "
+                        "busy share and the top kernels")
     args = parser.parse_args()
 
     import torch
@@ -398,9 +779,12 @@ def main() -> int:
     report = {}
     phase_radius(torch, gen, report)
     phase_select(torch, gen, report)
+    phase_conv(torch, gen, report)
     phase_slice(torch, args, report)
+    phase_train(torch, args, report)
     print(json.dumps({"kernels": [report["greedy_picks"],
-                                  report["radius_map"]]}), flush=True)
+                                  report["radius_map"],
+                                  report["dilated_conv3x3"]]}), flush=True)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -97,12 +97,14 @@ _C.PROTOCOL = "source_target"
 # identical to the reference recipes unless explicitly overridden).
 # ---------------------------------------------------------------------------
 _C.TPU = CN()
-# In the PyTorch port, TPU.PALLAS_SELECTION, STENCIL_TRAIN, DENSE_CONV_MODE,
-# CONV_WGRAD, FUSED_UPSAMPLE and the QUANT_* keys have no effect: greedy
-# selection always runs the CUDA kernel on a GPU (active/cuda_select.py),
-# convolutions always go through nn.Conv2d, and the acquisition round
-# always folds the upsample into the score. They stay in the schema so the
-# same YAMLs load in both packages.
+# In the PyTorch port, TPU.PALLAS_SELECTION, STENCIL_TRAIN, CONV_WGRAD,
+# FUSED_UPSAMPLE and the QUANT_* keys have no effect: greedy selection
+# always runs the CUDA kernel on a GPU (active/cuda_select.py), the weight
+# gradient of a cuDNN conv is cuDNN's, and the acquisition round always
+# folds the upsample into the score. DENSE_CONV_MODE "pallas" routes the
+# trunk's eligible dilated 3x3 convs to kernel C; its other values keep
+# cuDNN. The keys stay in the schema so the same YAMLs load in both
+# packages.
 # Compute dtype for the backbone/classifier ("bfloat16" or "float32").
 _C.TPU.COMPUTE_DTYPE = "bfloat16"
 # Hyperbolic-head compute dtype. The reference runs the Poincare head in
@@ -115,15 +117,15 @@ _C.TPU.DATA_PARALLEL = -1
 # Spatial model parallelism for the acquisition scoring map (rarely needed).
 _C.TPU.SPATIAL_PARALLEL = 1
 # Dtype of the native-resolution logits/embedding maps fed to acquisition
-# scoring. "bfloat16" (default) halves the HBM traffic of the
-# bandwidth-bound score chain (~1.6x throughput measured on v5e);
-# accumulations (softmax, entropy sums, norms, min-max) stay float32.
+# scoring. "bfloat16" (default) halves the bytes the bandwidth-bound score
+# chain moves; accumulations (softmax, entropy sums, norms, min-max) stay
+# float32.
 # Set "float32" for bit-reproducible score maps; the selected masks differ
 # only where scores are within bf16 rounding of each other (the score is
 # a sampling heuristic — see tests/test_active.py bf16 agreement test).
 _C.TPU.SCORING_DTYPE = "bfloat16"
-# Run greedy selection as the VMEM-resident Pallas kernel (XLA loop when
-# False or when not running on TPU hardware).
+# JAX package: greedy selection as its Pallas kernel. The port always runs
+# kernel A on a GPU.
 _C.TPU.PALLAS_SELECTION = True
 # Host data-loader worker threads.
 _C.TPU.LOADER_WORKERS = 4
@@ -137,17 +139,12 @@ _C.TPU.REMAT = False
 # depthwise_stencil). Eval always uses the stencil; False reverts
 # training to XLA's grouped-conv path.
 _C.TPU.STENCIL_TRAIN = True
-# Lowering for the trunk/head dense stride-1 3x3 convs: "conv" (XLA's
-# native emitter), "shift9" (9 shifted channel GEMMs, custom VJP —
-# layers.py:dense_stencil), "s2b" (space-to-batch around an undilated
-# conv, dilated trunk convs only), or "pallas" (VMEM-resident Pallas tap
-# GEMMs for the dilated trunk convs, ops/pallas_conv.py; falls back to
-# "conv" where unsupported). "conv" is the measured default: shift9 wins
-# 1.3-1.6x in isolation but loses ~25% inside the full trunk (its dots
-# re-read the block input from HBM), and pallas wins slightly isolated
-# but loses 2.3x in the trunk (each pallas_call is a fusion barrier +
-# unpipelined whole-map DMA). bench_dilated_conv.py records all
-# variants, isolated and in-context.
+# Implementation of the trunk's dense stride-1 dilated 3x3 convs. In the
+# port: "pallas" runs them through kernel C (ops/dilated_conv.py, a CUDA
+# implicit GEMM, forward and input gradient) wherever the rule of
+# models/layers.py:dilated_conv_eligible holds; "conv" (the default) and
+# the JAX package's other lowerings ("shift9", "s2b") use cuDNN. Every
+# value computes the same convolution.
 _C.TPU.DENSE_CONV_MODE = "conv"
 # Fold the acquisition sweep's native-res upsample into the score stage
 # (fused_upsample_region_score): the (H, W, C) native logits/embedding
@@ -156,10 +153,8 @@ _C.TPU.DENSE_CONV_MODE = "conv"
 # (tests/test_active.py). False reverts to resize-then-score (reference
 # structure, build.py:122-144).
 _C.TPU.FUSED_UPSAMPLE = True
-# Weight-grad lowering for the dense stride-1 convs: "gemm" (custom VJP —
-# XLA emitter fwd/dgrad, kh*kw shifted big-K GEMMs for the weight grad;
-# XLA's own wgrad of the dilated trunk convs measures 1.6x their forward)
-# or "conv" (XLA autodiff end-to-end). See models/layers.py:CONV_WGRAD.
+# JAX package: the weight-gradient lowering of its dense stride-1 convs
+# ("gemm" shifted GEMMs or "conv" autodiff). No effect in the port.
 _C.TPU.CONV_WGRAD = "gemm"
 # Images per device dispatch during acquisition scoring (the reference
 # sweeps batch=1, core/train_learners.py:282-289; any value yields
@@ -168,15 +163,10 @@ _C.TPU.CONV_WGRAD = "gemm"
 # batches by size automatically at any ACTIVE_BATCH (data/build.py
 # group_by_size, tested by test_engine.py::test_mixed_resolution_fit),
 # so no manual fallback to 1 is needed.
-# Post-training int8 (W8A8) eval path: route the stride-1 ungrouped
-# convs (the dilated trunk minus the stem, plus the decoder's dense
-# convs) through symmetric int8 on the MXU's double-rate s8 pipeline
-# (394 vs 197 bf16 TOPS on v5e; measured 1.7-2.0x at these shapes —
-# benchmarks/bench_int8.py). Inference-serving knob: requires a
-# calibration pass (halo_tpu.ops.quant.calibrate) before eval, adds a
-# `quant` variable collection, and changes numerics (per-tensor act /
-# per-channel weight symmetric quantization); the training protocols and
-# every reference-parity surface keep the float path.
+# JAX package: the post-training int8 (W8A8) eval path for the stride-1
+# ungrouped convs, after a calibration pass; it changes numerics
+# (per-tensor activation / per-channel weight symmetric quantization). Not
+# ported yet; no effect in the port.
 _C.TPU.QUANT_EVAL = False
 # Calibration batches fed through the model to set the PTQ activation
 # absmax (TestLearner._calibrate_quant) before a QUANT_EVAL eval. Batches
@@ -186,16 +176,10 @@ _C.TPU.QUANT_CALIB_BATCHES = 2
 # Force recalibration even when the restored checkpoint already carries
 # calibrated PTQ scales (default: restored calibration is kept).
 _C.TPU.QUANT_RECALIBRATE = False
-# Run the acquisition sweep's eval forward through the int8 W8A8 path:
-# the sweep forward dominates round wall-clock (~15 of ~16 ms/img at
-# 1024x2048, benchmarks/README.md) and the int8 eval leg measures
-# 11.3 ms/img, so this trades a measured, bounded selection perturbation
-# (mask fidelity + endpoint parity in benchmarks/bench_int8_sweep.py)
-# for ~25% faster rounds. The learner builds a quantized twin of the
-# model lazily and PTQ-recalibrates it from the round's own target
-# images before every round (params move between rounds, and the frozen
-# int8 weights snapshot params as of calibration). Training itself and
-# every other surface keep the float path.
+# JAX package: run the acquisition sweep's eval forward through the int8
+# W8A8 path, with a quantized twin of the model recalibrated from the
+# round's own target images before every round; the selection may change.
+# Training keeps the float path. Not ported yet; no effect in the port.
 _C.TPU.QUANT_SWEEP = False
 # In-training validation cadence in steps (the reference hardcodes
 # Lightning's val_check_interval=500, train.py:135); 0 disables.

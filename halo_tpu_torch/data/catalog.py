@@ -1,20 +1,23 @@
-"""Dataset catalog (the Cityscapes part of ``halo_tpu/data/catalog.py``)
-and active-mask initialisation."""
+"""Dataset catalog (the GTAV and Cityscapes part of
+``halo_tpu/data/catalog.py``) and active-mask initialisation."""
 
 from __future__ import annotations
 
 import os
 from concurrent.futures import ThreadPoolExecutor
 
-from .datasets import CityscapesDataSet
+from .datasets import CityscapesDataSet, GTAVDataSet
 from .masks import init_image_mask
 
 
 class DatasetCatalog:
     DATASET_DIR = "datasets"
     DATASETS = {
+        "gtav_train": {"data_dir": "gtav", "data_list": "gtav_train_list.txt"},
         "cityscapes_train": {"data_dir": "cityscapes",
                              "data_list": "cityscapes_train_list.txt"},
+        "cityscapes_val": {"data_dir": "cityscapes",
+                           "data_list": "cityscapes_val_list.txt"},
     }
 
     @staticmethod
@@ -27,18 +30,27 @@ class DatasetCatalog:
         return DatasetCatalog.DATASET_DIR
 
     @staticmethod
-    def get(name, mode, num_classes, transform=None, cfg=None):
+    def get(name, mode, num_classes, max_iters=None, transform=None,
+            cfg=None, seed=0, is_source=False):
+        """The dataset ``name`` in ``mode`` ('train', 'active', 'val').
+        A Cityscapes set used as the source reads full labels and no mask
+        store."""
         if name not in DatasetCatalog.DATASETS:
             raise NotImplementedError(
                 f"Dataset {name!r} is not ported yet (ROADMAP.md Queue 1 "
-                "items 11-12); the port reads cityscapes.")
+                "items 11-12); the port reads gtav and cityscapes.")
         attrs = DatasetCatalog.DATASETS[name]
         data_dir = DatasetCatalog.dataset_dir(cfg)
+        root = os.path.join(data_dir, attrs["data_dir"])
+        data_list = os.path.join(data_dir, attrs["data_list"])
+        if name.startswith("gtav"):
+            return GTAVDataSet(root, data_list, max_iters=max_iters,
+                               num_classes=num_classes, split=mode,
+                               transform=transform, seed=seed)
         return CityscapesDataSet(
-            os.path.join(data_dir, attrs["data_dir"]),
-            os.path.join(data_dir, attrs["data_list"]),
-            save_dir=cfg.SAVE_DIR, num_classes=num_classes, split=mode,
-            transform=transform)
+            root, data_list, save_dir=cfg.SAVE_DIR, max_iters=max_iters,
+            num_classes=num_classes, split=mode, transform=transform,
+            load_mask=not is_source)
 
     @staticmethod
     def init_mask(cfg, workers: int = 16):

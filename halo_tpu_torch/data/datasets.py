@@ -1,10 +1,13 @@
-"""Cityscapes target set with the active-mask protocol (copy of the parts
-of ``halo_tpu/data/datasets.py`` the acquisition round reads).
+"""Datasets: the GTAV source set and the Cityscapes target set with the
+active-mask protocol (copy of ``halo_tpu/data/datasets.py:56-322``;
+SYNTHIA and ACDC are not ported yet).
 
-Samples are dicts of numpy arrays and strings, channel-last. In 'active'
-mode every sample carries its native-resolution label, mask and
-active/selected indicators; the mask PNG and indicator are read from the
-in-process cache first, then from disk.
+Samples are dicts of numpy arrays and strings, channel-last. A train-mode
+Cityscapes sample carries its label and its active mask (read from the
+in-process cache first, then from disk) through the transforms as one
+(H, W, 2) map; in 'active' mode it also carries the native-resolution
+label, mask and active/selected indicators. ``__getitem__`` takes the
+``random.Random`` of the sample, which the train transforms draw from.
 
 Label maps (``label``, ``mask``, ``origin_label``, ``origin_mask``) are
 uint8 here, where the JAX copy widens them to int32: the values are the
@@ -15,6 +18,8 @@ same (0-255), and a loader worker ships a sample to the main process in
 from __future__ import annotations
 
 import os
+import os.path as osp
+import pickle
 from typing import Dict, List
 
 import numpy as np
@@ -45,11 +50,107 @@ def remap_labels(label: np.ndarray, num_classes: int,
     return table[label]
 
 
-class CityscapesDataSet:
-    """Cityscapes target set with the active-mask protocol."""
+def _repeat_to(lst, max_iters):
+    """``lst`` repeated to at least ``max_iters`` entries."""
+    if max_iters is None or not lst:
+        return lst
+    return lst * int(np.ceil(float(max_iters) / len(lst)))
 
-    def __init__(self, data_root, data_list, save_dir, num_classes=19,
-                 split="train", transform=None, ignore_label=255):
+
+def balanced_file_list(label_to_file, file_to_label, num_classes, max_iters,
+                       seed=0, sub_epoch_size=3000):
+    """Inverse-log-frequency class-balanced resampling of the source list,
+    from a ``np.random.RandomState(seed)``: the same draws as the JAX
+    package's copy. Classes with no files are left out of the draw."""
+    rng = np.random.RandomState(seed)
+    label_to_file = [list(v) for v in label_to_file]
+    ind = {i: 0 for i in range(num_classes)}
+    has_files = np.array([len(v) > 0 for v in label_to_file], bool)
+    if not has_files.any():
+        raise ValueError("label-info has no files for any class")
+    out = []
+    for _e in range(int(max_iters / sub_epoch_size) + 1):
+        dist = np.zeros(num_classes)
+        for _i in range(sub_epoch_size):
+            dist1 = dist.copy() if dist.sum() == 0 else dist / dist.sum()
+            w = 1.0 / np.log(1 + 1e-2 + dist1)
+            w = np.where(has_files, w, 0.0)
+            w = w / w.sum()
+            c = rng.choice(num_classes, p=w)
+            if ind[c] > (len(label_to_file[c]) - 1):
+                rng.shuffle(label_to_file[c])
+                ind[c] = ind[c] % len(label_to_file[c])
+            c_file = label_to_file[c][ind[c]]
+            out.append(c_file)
+            ind[c] += 1
+            dist[file_to_label[c_file]] += 1
+    return out
+
+
+class GTAVDataSet:
+    """GTAV source set: ``images/<name>`` and ``labels/<name>`` under the
+    data root. With ``max_iters`` the list is the class-balanced
+    resampling over the label-info pickle, repeated to ``max_iters``."""
+
+    label_info_name = "gtav_label_info.p"
+
+    def __init__(self, data_root, data_list, max_iters=None, num_classes=19,
+                 split="train", transform=None, ignore_label=255, seed=0):
+        self.split = split
+        self.num_classes = num_classes
+        self.data_root = data_root
+        self.transform = transform
+        self.ignore_label = ignore_label
+        with open(data_list) as handle:
+            img_ids = [line.strip() for line in handle if line.strip()]
+        if max_iters is not None:
+            # The class-frequency table: next to the data, next to the list,
+            # then the copy committed under <repo>/datasets/.
+            candidates = [
+                osp.join(data_root, self.label_info_name),
+                osp.join(osp.dirname(osp.abspath(data_list)),
+                         self.label_info_name),
+                osp.join(osp.dirname(osp.dirname(osp.dirname(
+                    osp.abspath(__file__)))), "datasets",
+                    self.label_info_name),
+            ]
+            info = next((c for c in candidates if osp.exists(c)),
+                        candidates[0])
+            with open(info, "rb") as handle:
+                label_to_file, file_to_label = pickle.load(handle)
+            img_ids = balanced_file_list(label_to_file, file_to_label,
+                                         num_classes, max_iters, seed=seed)
+        self.data_list: List[Dict] = [
+            {"img": os.path.join(data_root, "images", name),
+             "label": os.path.join(data_root, "labels", name),
+             "name": name} for name in img_ids]
+        if max_iters is not None:
+            self.data_list = _repeat_to(self.data_list, max_iters)
+
+    def __len__(self):
+        return len(self.data_list)
+
+    def __getitem__(self, index, rng=None):
+        files = self.data_list[index]
+        image = Image.open(files["img"]).convert("RGB")
+        label = remap_labels(np.asarray(Image.open(files["label"]),
+                                        dtype=np.uint8),
+                             self.num_classes, self.ignore_label)
+        label = Image.fromarray(label)
+        if self.transform is not None:
+            image, label = self.transform(image, label, rng)
+        return {"img": image, "label": np.asarray(label), "index": index,
+                "name": files["name"]}
+
+
+class CityscapesDataSet:
+    """Cityscapes target set with the active-mask protocol. ``load_mask``
+    False (a Cityscapes source) reads no mask store; ``max_iters`` repeats
+    the list."""
+
+    def __init__(self, data_root, data_list, save_dir, max_iters=None,
+                 num_classes=19, split="train", transform=None,
+                 ignore_label=255, load_mask=True):
         self.active = split == "active"
         if split == "active":
             split = "train"
@@ -59,6 +160,7 @@ class CityscapesDataSet:
         self.save_dir = save_dir
         self.transform = transform
         self.ignore_label = ignore_label
+        self.load_mask = load_mask
 
         with open(data_list) as handle:
             names = [line.strip() for line in handle if line.strip()]
@@ -78,15 +180,16 @@ class CityscapesDataSet:
                     save_dir, f"gtIndicator/train/{stem}_indicator.pth"),
                 "name": name,
             })
+        self.data_list = _repeat_to(self.data_list, max_iters)
 
     def __len__(self):
         return len(self.data_list)
 
-    def __getitem__(self, index):
+    def __getitem__(self, index, rng=None):
         files = self.data_list[index]
         image = Image.open(files["img"]).convert("RGB")
         label = np.asarray(Image.open(files["label"]), dtype=np.uint8)
-        if self.split == "train":
+        if self.split == "train" and self.load_mask:
             label_mask = mask_cache.get_mask(files["label_mask"])
             if label_mask is None:
                 label_mask = np.asarray(Image.open(files["label_mask"]),
@@ -114,7 +217,7 @@ class CityscapesDataSet:
         # label + mask ride through the transforms as one 2-channel map
         pair = np.stack([label, label_mask], axis=-1)
         if self.transform is not None:
-            image, pair = self.transform(image, pair)
+            image, pair = self.transform(image, pair, rng)
         return {
             "img": image,
             "label": pair[..., 0],

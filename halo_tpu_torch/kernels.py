@@ -22,7 +22,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cuda"
-SOURCES = ("radius.cu", "select.cu")
+SOURCES = ("dilated_conv.cu", "radius.cu", "select.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _lock = threading.Lock()
@@ -35,6 +35,8 @@ _SIGNATURES = {
     "halo_radius_map_bf16": (_P, _P, _LL, _I, _I, _F, _F, _P),
     "halo_radius_map_f32": (_P, _P, _LL, _I, _I, _F, _F, _P),
     "halo_greedy_picks": (_P, _I, _I, _I, _I, _P, _P, _P),
+    "halo_dilated_conv3x3_bf16": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "halo_dilated_conv3x3_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -46,9 +46,11 @@ def build_segmentor(cfg, device=None,
     ``generator`` (default: seeded with ``max(cfg.SEED, 0)``).
 
     ``model.compute_dtype`` is the autocast dtype for the trunk and the
-    decoder (``TPU.COMPUTE_DTYPE``). Pretrained ``.pth`` loading is a
-    separate step (``load_state_dict``; ``models.convert`` carries JAX
-    weights across).
+    decoder (``TPU.COMPUTE_DTYPE``). ``TPU.DENSE_CONV_MODE "pallas"`` routes
+    the trunk's eligible dilated 3x3 convs to kernel C; every other mode
+    keeps cuDNN. The learner calls ``.train()``. Pretrained ``.pth``
+    loading is a separate step (``load_state_dict``; ``models.convert``
+    carries JAX weights across).
     """
     dev = resolve_device(device)
     head_name, backbone_name = cfg.MODEL.NAME.split("_", 1)
@@ -59,7 +61,9 @@ def build_segmentor(cfg, device=None,
             "deeplabv3plus_<resnet> with MODEL.HYPER True.")
     freeze_bn = bool(cfg.MODEL.FREEZE_BN)
     model = Segmentor(
-        resnet_feature_extractor(backbone_name, freeze_bn=freeze_bn),
+        resnet_feature_extractor(
+            backbone_name, freeze_bn=freeze_bn,
+            dense_conv_mode=str(cfg.TPU.DENSE_CONV_MODE)),
         SeparableASPPHyperHead(
             num_classes=cfg.MODEL.NUM_CLASSES,
             reduced_channels=cfg.MODEL.REDUCED_CHANNELS,

@@ -2,11 +2,12 @@
 
 Port of the semantic layers of ``halo_tpu/models/layers.py``:
 FrozenBatchNorm, the live BatchNorm with torch momentum, ``make_norm``,
-ConvBNReLU and DepthwiseSeparableConv. Convolutions are ``nn.Conv2d``
-(cuDNN on a GPU; ``groups=C`` for depthwise). The JAX package's conv
-lowering variants (stencils, shifted GEMMs, space-to-batch, GEMM weight
-grads, int8, the Pallas dilated conv) are choices for the TPU's compiler,
-not semantics, and have no counterpart here.
+ConvBNReLU, DepthwiseSeparableConv, and the dilated trunk conv that runs
+kernel C (``DilatedConv3x3``, the counterpart of ``PallasDilatedConv``).
+Other convolutions are ``nn.Conv2d`` (cuDNN on a GPU; ``groups=C`` for
+depthwise). The JAX package's other conv lowerings (stencils, shifted
+GEMMs, space-to-batch, GEMM weight grads, int8) are choices for the TPU's
+compiler, not semantics, and have no counterpart here.
 
 Module and buffer names follow the upstream torch checkpoints, so a
 reference ``state_dict`` loads with ``strict=True``.
@@ -18,6 +19,8 @@ import math
 
 import torch
 from torch import nn
+
+from ..ops.dilated_conv import dilated_conv3x3
 
 
 class FrozenBatchNorm2d(nn.Module):
@@ -79,6 +82,40 @@ class DepthwiseSeparableConv(nn.Module):
     def forward(self, x):
         x = torch.relu(self.depthwise_bn(self.depthwise_conv(x)))
         return torch.relu(self.pointwise_bn(self.pointwise_conv(x)))
+
+
+def dilated_conv_eligible(mode: str, channels: int, stride: int,
+                          dilation: int) -> bool:
+    """Whether a bottleneck's ``conv2`` (a dense, ungrouped 3x3 with
+    padding = dilation and ``channels`` in and out) routes to kernel C
+    (``TPU.DENSE_CONV_MODE "pallas"``), decided once when the module is
+    built from the JAX package's structural rule
+    (``halo_tpu/models/layers.py:751``): stride 1, dilation >= 2, channels
+    a multiple of 128 (which ``ops/dilated_conv.supports`` takes in both
+    dtypes). The JAX rule's W % 8 and VMEM budget are TPU limits and are
+    not carried over: the kernel takes any H and W."""
+    return (mode == "pallas" and stride == 1 and dilation >= 2
+            and channels % 128 == 0)
+
+
+class DilatedConv3x3(nn.Conv2d):
+    """A bias-free 3x3 stride-1 conv with padding = dilation = d that runs
+    kernel C (``ops/dilated_conv.py``) forward and backward. It keeps the
+    ``weight`` parameter of ``nn.Conv2d`` (float32, ``(Co, C, 3, 3)``), so
+    names and checkpoints are those of the conv it replaces. Input and
+    weight are cast to the autocast dtype when autocast is on, else to the
+    input's dtype, as the JAX module casts to its compute dtype."""
+
+    def __init__(self, in_channels: int, out_channels: int, dilation: int):
+        super().__init__(in_channels, out_channels, 3, padding=dilation,
+                         dilation=dilation, bias=False)
+
+    def forward(self, x):
+        kind = x.device.type
+        dtype = (torch.get_autocast_dtype(kind)
+                 if torch.is_autocast_enabled(kind) else x.dtype)
+        return dilated_conv3x3(x.to(dtype), self.weight.to(dtype),
+                               self.dilation[0])
 
 
 # ---------------------------------------------------------------------------

@@ -14,24 +14,31 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from .layers import init_conv_, make_norm, reset_norms_
+from .layers import (DilatedConv3x3, dilated_conv_eligible, init_conv_,
+                     make_norm, reset_norms_)
 
 
 class Bottleneck(nn.Module):
-    """1x1 reduce -> 3x3 (stride/dilation) -> 1x1 expand, residual add."""
+    """1x1 reduce -> 3x3 (stride/dilation) -> 1x1 expand, residual add.
+
+    ``dense_conv_mode`` "pallas" builds an eligible 3x3 as a
+    ``DilatedConv3x3`` (kernel C); any other mode keeps ``nn.Conv2d``."""
 
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  dilation: int = 1, has_downsample: bool = False,
-                 freeze_bn: bool = False):
+                 freeze_bn: bool = False, dense_conv_mode: str = "conv"):
         super().__init__()
         out_ch = planes * self.expansion
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
         self.bn1 = make_norm(freeze_bn, planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride,
-                               padding=dilation, dilation=dilation,
-                               bias=False)
+        if dilated_conv_eligible(dense_conv_mode, planes, stride, dilation):
+            self.conv2 = DilatedConv3x3(planes, planes, dilation)
+        else:
+            self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride,
+                                   padding=dilation, dilation=dilation,
+                                   bias=False)
         self.bn2 = make_norm(freeze_bn, planes)
         self.conv3 = nn.Conv2d(planes, out_ch, 1, bias=False)
         self.bn3 = make_norm(freeze_bn, out_ch)
@@ -60,7 +67,7 @@ class ResNetFeatures(nn.Module):
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 23, 3),
                  replace_stride_with_dilation=(False, True, True),
-                 freeze_bn: bool = False):
+                 freeze_bn: bool = False, dense_conv_mode: str = "conv"):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = make_norm(freeze_bn, 64)
@@ -82,7 +89,7 @@ class ResNetFeatures(nn.Module):
                     dilation=previous_dilation if first else dilation,
                     has_downsample=first and (
                         stride != 1 or inplanes != planes * 4),
-                    freeze_bn=freeze_bn))
+                    freeze_bn=freeze_bn, dense_conv_mode=dense_conv_mode))
                 inplanes = planes * Bottleneck.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*layer))
 
@@ -122,11 +129,16 @@ _STAGE_SIZES = {
 }
 
 
-def resnet_feature_extractor(backbone_name: str,
-                             freeze_bn: bool = False) -> FeatureExtractor:
+def resnet_feature_extractor(backbone_name: str, freeze_bn: bool = False,
+                             dense_conv_mode: str = "conv"
+                             ) -> FeatureExtractor:
+    """The trunk under ``feature_extractor.backbone``; ``dense_conv_mode``
+    is ``TPU.DENSE_CONV_MODE`` ("pallas" routes the eligible dilated 3x3
+    convs to kernel C)."""
     if backbone_name not in _STAGE_SIZES:
         raise NotImplementedError(
             f"Backbone {backbone_name!r} is not ported yet (ROADMAP.md "
             "Queue 1 item 12); the port has resnet101 and resnettiny.")
     return FeatureExtractor(ResNetFeatures(
-        stage_sizes=_STAGE_SIZES[backbone_name], freeze_bn=freeze_bn))
+        stage_sizes=_STAGE_SIZES[backbone_name], freeze_bn=freeze_bn,
+        dense_conv_mode=dense_conv_mode))

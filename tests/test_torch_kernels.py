@@ -98,3 +98,86 @@ def test_select_pixels_matches_plain_twin(gen):
     want = tsel.select_pixels_to_label(score, am, gt, active, selected, **kw)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Kernel C: the dilated 3x3 conv, forward and dx
+# ---------------------------------------------------------------------------
+
+def _bf16_steps(got, want, floor):
+    """Largest |got - want| in units of one bf16 step of the larger
+    magnitude, after forgiving ``floor`` (absolute): near zero the order of
+    the float32 sums decides the rounding."""
+    got, want = got.float(), want.float()
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(2.0 ** -126)
+    step = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float((((got - want).abs() - floor).clamp_min(0) / step).max())
+
+
+def _conv_case(gen, b, c, co, h, w, dtype):
+    x = torch.randn((b, c, h, w), generator=gen, device="cuda").to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    wt = (torch.randn((co, c, 3, 3), generator=gen, device="cuda")
+          / math.sqrt(9 * c)).to(dtype)
+    g = torch.randn((b, co, h, w), generator=gen, device="cuda").to(dtype)
+    return x, wt, g.contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("b,c,co,h,w,d,dtype", [
+    (2, 128, 128, 16, 32, 1, torch.bfloat16),
+    (2, 128, 128, 16, 32, 2, torch.bfloat16),
+    (2, 128, 128, 16, 32, 4, torch.bfloat16),
+    (2, 128, 256, 16, 32, 2, torch.bfloat16),    # Cin != Cout
+    (1, 64, 160, 7, 13, 3, torch.bfloat16),      # ragged tiles
+    (2, 256, 256, 90, 160, 2, torch.bfloat16),   # layer3, source
+    (2, 512, 512, 80, 160, 4, torch.bfloat16),   # layer4, target
+    (2, 128, 256, 16, 32, 2, torch.float32),
+    (1, 48, 32, 9, 11, 2, torch.float32),        # ragged tiles, Cin != Cout
+])
+def test_dilated_conv_matches_plain(gen, b, c, co, h, w, d, dtype):
+    from halo_tpu_torch.ops import dilated_conv as dc
+    x, wt, g = _conv_case(gen, b, c, co, h, w, dtype)
+    xk = x.clone().requires_grad_(True)
+    wk = wt.clone().requires_grad_(True)
+    fwd, dx_before = dc.launches_fwd, dc.launches_dx
+    got = dc.dilated_conv3x3(xk, wk, d)
+    got.backward(g)
+    assert (dc.launches_fwd, dc.launches_dx) == (fwd + 1, dx_before + 1)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    xp = x.clone().requires_grad_(True)
+    wp = wt.clone().requires_grad_(True)
+    want = dc.dilated_conv3x3_plain(xp, wp, d)
+    want.backward(g)
+    torch.cuda.synchronize()
+    for a, e in ((got, want), (xk.grad, xp.grad), (wk.grad, wp.grad)):
+        assert a.dtype == e.dtype == dtype
+        floor = 1e-5 * float(e.detach().float().abs().max())
+        if dtype == torch.bfloat16:
+            assert _bf16_steps(a, e, floor) <= 1.0
+        else:
+            assert float((a - e).abs().max()) <= floor
+
+
+def test_dilated_conv_refuses(gen):
+    from halo_tpu_torch import kernels
+    from halo_tpu_torch.ops import dilated_conv as dc
+    x = torch.zeros((1, 24, 8, 8), device="cuda", dtype=torch.bfloat16)
+    wt = torch.zeros((32, 24, 3, 3), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):   # C % 32 != 0: the wrapper refuses
+        dc.dilated_conv3x3(x, wt, 2)
+    # Co % 16 != 0 in float32: the forward alone could run, but its dx (C
+    # and Co swapped) could not, so the wrapper refuses the forward
+    xf = torch.zeros((1, 48, 9, 11), device="cuda", requires_grad=True)
+    wf = torch.zeros((40, 48, 3, 3), device="cuda", requires_grad=True)
+    fwd = dc.launches_fwd
+    with pytest.raises(ValueError):
+        dc.dilated_conv3x3(xf, wf, 2)
+    assert dc.launches_fwd == fwd
+    y = torch.empty((1, 8, 8, 32), device="cuda", dtype=torch.bfloat16)
+    lib = kernels.load()
+    for c, co in ((24, 32), (32, 24)):  # the C entry refuses either way
+        err = lib.halo_dilated_conv3x3_bf16(
+            x.data_ptr(), wt.data_ptr(), y.data_ptr(), 1, 8, 8, c, co, 2,
+            kernels.current_stream(x.device))
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            kernels.check(err, "halo_dilated_conv3x3_bf16")
