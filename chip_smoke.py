@@ -13,22 +13,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
              torch.linalg.vector_norm.
   3. select  kernel A against its plain version (the column-cache loop),
              bit-exact, on a 1024x2048 map with 2331 picks, m = 5, a
-             pre-active block and a tie plateau, plus an early-stop case;
-             times both.
+             pre-active block and a tie plateau, an early-stop case, and
+             a batch of 4 maps in one launch (one stops early); times
+             one map, the batch (us a pick) and the plain version.
   4. conv    kernel C (the dilated 3x3 conv) against its plain version,
              forward and dx through autograd, at the train step's shapes
              (B = 2, 90x160: 256 ch d=2, 512 ch d=2, 512 ch d=4, bf16;
-             256 ch d=2 float32): bf16 within one bf16 step beyond 1e-5
-             of max|out|, f32 within 1e-5 of max|out|; times kernel (fwd
-             and dx), plain version and F.conv2d (cuDNN).
+             256 ch d=2 float32), after one small launch synchronised at
+             once: bf16 within one bf16 step beyond 1e-5 of max|out|, f32
+             within 1e-5 of max|out|; times kernel (fwd and dx), plain
+             version, F.conv2d (cuDNN) and the dk path (wgrad_taps).
   5. slice   the acquisition round of configs/gtav/source_target.yaml
              (DeepLab-v3+ R101, hyperbolic head with HFR, 640x1280 input,
              entropy x radius, 1% a round) from a seeded random init over a
              synthetic 1024x2048 Cityscapes tree: 2331 picks an image,
              every mask PNG and indicator written, both kernels launched
-             on the path (launch counters), ms/img by stage; then kernel A
-             held bit-exact and kernel B within 1e-6 against their plain
-             versions on the first image's real score map and embedding.
+             on the path (launch counters; kernel A once a batch),
+             ms/img by stage; then kernel A held bit-exact (and timed) and
+             kernel B within 1e-6 against their plain versions on the
+             first image's real score map and embedding.
   6. train   halo_tpu_torch.train.main on the same recipe with
              TPU.DENSE_CONV_MODE pallas (source 2x720x1280, target
              2x640x1280) over synthetic GTAV (1914x1052) and Cityscapes
@@ -162,18 +165,25 @@ def plateau_map(torch, gen, h, w):
     return score
 
 
+def same_picks(torch, got, want, label):
+    """Kernel A's (picks, count) bit-exact with its plain version's."""
+    if torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]):
+        return
+    bad = (got[0] != want[0]).any(dim=-1).nonzero()
+    at = bad[0].tolist() if len(bad) else "count"
+    raise AssertionError(f"kernel A differs from its plain version on the "
+                         f"{label} at {at}: {got[1].tolist()} vs "
+                         f"{want[1].tolist()} picks")
+
+
 def phase_select(torch, gen, report, num_picks=2331, m=5):
     from halo_tpu_torch.active import cuda_select
+    kw = dict(num_picks=num_picks, mask_radius=m)
     score = plateau_map(torch, gen, 1024, 2048)
-    got = cuda_select.greedy_picks(score, num_picks=num_picks, mask_radius=m)
-    want = cuda_select.greedy_picks_reference(score, num_picks=num_picks,
-                                              mask_radius=m)
+    got = cuda_select.greedy_picks(score, **kw)
     torch.cuda.synchronize()
-    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-        bad = int((got[0] != want[0]).any(dim=1).nonzero()[0])
-        raise AssertionError(
-            f"kernel A differs from its plain version at pick {bad}: "
-            f"{got[0][bad].tolist()} vs {want[0][bad].tolist()}")
+    same_picks(torch, got, cuda_select.greedy_picks_reference(score, **kw),
+               "plateau map")
     n = int(got[1])
     print(f"select 1024x2048 N={num_picks} m={m}: bit-exact, {n} picks",
           flush=True)
@@ -186,18 +196,37 @@ def phase_select(torch, gen, report, num_picks=2331, m=5):
             and int(want[1]) == 2):
         raise AssertionError(f"early stop: {got} vs {want}")
     print("select early stop: bit-exact, 2 picks", flush=True)
-    ms = cuda_ms(torch, lambda i: cuda_select.greedy_picks(
-        score, num_picks=num_picks, mask_radius=m), 5, warmup=1)
+    # A batch of 4 maps in one launch: the plateau map, two random maps
+    # and one with 1000 finite scores (it stops early).
+    sparse = torch.full((1024, 2048), float("-inf"), device=DEVICE)
+    idx = torch.randint(0, 1024 * 2048, (1000,), generator=gen,
+                        device=DEVICE)
+    sparse.view(-1)[idx] = torch.rand((1000,), generator=gen, device=DEVICE)
+    maps = torch.stack([score, torch.randn((1024, 2048), generator=gen,
+                                           device=DEVICE),
+                        score.flip(1), sparse])
+    picks, counts = cuda_select.greedy_picks(maps, **kw)
+    for i in range(4):
+        same_picks(torch, (picks[i], counts[i]),
+                   cuda_select.greedy_picks_reference(maps[i], **kw),
+                   f"batch map {i}")
+    print(f"select batch of 4 maps: bit-exact, {counts.tolist()} picks",
+          flush=True)
+    ms = cuda_ms(torch, lambda i: cuda_select.greedy_picks(score, **kw), 5,
+                 warmup=1)
+    ms4 = cuda_ms(torch, lambda i: cuda_select.greedy_picks(maps, **kw), 5,
+                  warmup=1)
     t0 = time.perf_counter()
-    cuda_select.greedy_picks_reference(score, num_picks=num_picks,
-                                       mask_radius=m)
+    cuda_select.greedy_picks_reference(score, **kw)
     torch.cuda.synchronize()
     plain = (time.perf_counter() - t0) * 1e3
     b_ms, b_by = bound_ms(1024 * 2048 * 4 + num_picks * 2 * 4 + 4,
                           1024 * 2048 + n * (2 * m + 1) * 1024)
     print(f"select 1024x2048 N={num_picks}: kernel {ms:.3f} ms "
-          f"({ms / num_picks * 1e3:.2f} us/pick), plain {plain:.1f} ms, "
-          f"bound {b_ms:.4f} ms", flush=True)
+          f"({ms / num_picks * 1e3:.3f} us/pick), plain {plain:.1f} ms, "
+          f"bound {b_ms:.4f} ms; batch of 4 maps in one launch {ms4:.3f} ms "
+          f"({ms4 / num_picks * 1e3:.3f} us a pick of each map's chain, "
+          f"{ms4 / ms:.2f}x one map)", flush=True)
     report["greedy_picks"] = {
         "name": "greedy_picks", "route": "cuda",
         "source": "halo_tpu_torch/csrc/select.cu",
@@ -261,6 +290,14 @@ def phase_conv(torch, gen, report):
 
     cases = [(256, 2, torch.bfloat16), (512, 2, torch.bfloat16),
              (512, 4, torch.bfloat16), (256, 2, torch.float32)]
+    # One launch, synchronised at once: a kernel that hangs or faults
+    # shows here, not in a later phase.
+    x = torch.randn((1, 64, 8, 40), generator=gen, device=DEVICE)
+    x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    dc._conv(x, torch.zeros((64, 64, 3, 3), dtype=torch.bfloat16,
+                            device=DEVICE), 1, "fwd")
+    torch.cuda.synchronize()
+    print("conv: first bf16 launch ran", flush=True)
     worst = 0.0
     rows = {}
     for c, d, dtype in cases:
@@ -281,6 +318,7 @@ def phase_conv(torch, gen, report):
                 torch, lambda i: dc.dilated_conv3x3_plain(x, wt, d), 10)
             lib = cuda_ms(torch, lambda i: F.conv2d(
                 x, wt_cl, padding=d, dilation=d), 50)
+            dk = cuda_ms(torch, lambda i: dc.wgrad_taps(x, g, d), 20)
         flops = 2 * 2 * 90 * 160 * 9 * c * c
         nbytes = (2 * 2 * 90 * 160 * c + 9 * c * c) * x.element_size()
         rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
@@ -288,7 +326,8 @@ def phase_conv(torch, gen, report):
         print(f"conv {label} (2, {c}, 90, 160): kernel fwd {ms:.4f} ms, dx "
               f"{ms_dx:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s fwd), plain "
               f"{plain:.4f} ms, F.conv2d (cuDNN, channels_last) {lib:.4f} "
-              f"ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+              f"ms, bound {b_ms:.4f} ms ({b_by}); dk (wgrad_taps: pad, "
+              f"9 slab copies, 9 torch.mm) {dk:.4f} ms", flush=True)
         rows[label] = (ms, plain, b_ms, b_by, lib)
     ms, plain, b_ms, b_by, lib = rows["256ch d=2 bfloat16"]
     report["dilated_conv3x3"] = {
@@ -460,6 +499,10 @@ def phase_slice(torch, args, report):
             if count <= 0:
                 raise AssertionError(f"{name} never launched on the path")
             report[name]["launches"] = count
+        batches = math.ceil(n / int(cfg.TPU.ACTIVE_BATCH))
+        if launches["greedy_picks"] != batches:
+            raise AssertionError(f"kernel A launched {launches['greedy_picks']}"
+                                 f" times for {batches} batches of one size")
         loader = build_active_loader(cfg, num_workers=0)
         for entry in loader.dataset.data_list:
             mask = load_mask_png(entry["label_mask"])
@@ -493,8 +536,12 @@ def phase_slice(torch, args, report):
             block = block.to(torch.bfloat16).contiguous()
             rad = cuda_radius.radius_map(block)
             rad_plain = cuda_radius.radius_map_reference(block)
-        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-            raise AssertionError("kernel A differs on the real score map")
+        same_picks(torch, got, want, "real score map")
+        kw = dict(num_picks=picks_per_img, mask_radius=5)
+        ms = cuda_ms(torch, lambda i: cuda_select.greedy_picks(score, **kw),
+                     5, warmup=1)
+        print(f"kernel A on the first image's real score map: {ms:.3f} ms "
+              f"({ms / picks_per_img * 1e3:.3f} us/pick)", flush=True)
         # Near the ball's edge artanh magnifies the float32 rounding of the
         # norm without bound (x1000 at t = 1 - 1e-4), so compare in
         # t = |x| = tanh(r/2) everywhere and hold the relative 1e-6 where

@@ -2,15 +2,16 @@
 
 Port of ``halo_tpu/active/region_selection.py:75-371``. For every batch of
 target images: one eval forward (no grad, autocast in the model's compute
-dtype); then, per image at its own native size, the entropy x radius region
-score with the upsample folded in, greedy picks of
-ceil(H*W*budget_round/(2r+1)^2) regions (kernel A), and the mask replay.
+dtype); the entropy x radius region score of every image at its own native
+size, with the upsample folded in; then, for each group of the batch's
+images of one native size, greedy picks of ceil(H*W*budget_round/(2r+1)^2)
+regions an image in one kernel-A launch; then each image's mask replay.
 Each updated mask and indicator is published to the in-process cache at
 once and written to disk on a background thread, overlapped with the next
 batch; the round waits for every write and raises on any failure.
 
-The port runs eagerly, so it needs no compiled-program cache, no padding of
-the last batch and no grouping of batches by native size.
+The port runs eagerly, so it needs no compiled-program cache and no padding
+of the last batch.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from ..data.masks import save_indicator, save_mask_png
 from ..device import resolve_device
 from ..engine.steps import make_forward
 from .scoring import fused_upsample_region_score
-from .selection import cuda_select_pixels_to_label
+from .selection import cuda_select_pixels_to_label_batch
 
 
 def _persist(mask, active, selected, mask_path, ind_path):
@@ -99,28 +100,47 @@ def region_selection(cfg, model, active_loader, round_number: int,
             with torch.no_grad():
                 logits, embed = forward(imgs)
             lap("forward")
-            for b in range(imgs.shape[0]):
-                size = tuple(int(s) for s in batch["size"][b])
-                num_picks = math.ceil(size[0] * size[1] * budget_round
-                                      / per_region_pixels)
+            n_img = imgs.shape[0]
 
-                def field(key, dtype):
-                    return torch.as_tensor(np.asarray(batch[key][b]),
-                                           device=dev).to(dtype)
+            def field(key, dtype, b):
+                return torch.as_tensor(np.asarray(batch[key][b]),
+                                       device=dev).to(dtype)
 
-                gt = field("origin_label", torch.int32)
-                emb = embed[b] if needs_embed else None
-                with torch.no_grad():
-                    score, _, _ = fused_upsample_region_score(
-                        logits[b], emb, size, gt if gt_needed else None,
-                        score_dtype=score_dtype, **score_opts)
-                    lap("score")
-                    res = cuda_select_pixels_to_label(
-                        score, field("origin_mask", torch.int32), gt,
-                        field("active", torch.bool),
-                        field("selected", torch.bool), num_picks=num_picks,
-                        active_radius=active_radius, mask_radius=mask_radius)
-                    lap("select")
+            def stack(key, dtype, idx):
+                return torch.stack([field(key, dtype, b) for b in idx])
+
+            # Score every image at its own native size, then select once
+            # for each group of images of one size (one budget).
+            sizes = [tuple(int(s) for s in batch["size"][b])
+                     for b in range(n_img)]
+            gts = [field("origin_label", torch.int32, b)
+                   for b in range(n_img)]
+            with torch.no_grad():
+                scores = [fused_upsample_region_score(
+                    logits[b], embed[b] if needs_embed else None, sizes[b],
+                    gts[b] if gt_needed else None, score_dtype=score_dtype,
+                    **score_opts)[0] for b in range(n_img)]
+            lap("score")
+            groups = {}
+            for b, size in enumerate(sizes):
+                groups.setdefault(size, []).append(b)
+            results = [None] * n_img
+            with torch.no_grad():
+                for size, idx in groups.items():
+                    num_picks = math.ceil(size[0] * size[1] * budget_round
+                                          / per_region_pixels)
+                    out = cuda_select_pixels_to_label_batch(
+                        torch.stack([scores[b] for b in idx]),
+                        stack("origin_mask", torch.int32, idx),
+                        torch.stack([gts[b] for b in idx]),
+                        stack("active", torch.bool, idx),
+                        stack("selected", torch.bool, idx),
+                        num_picks=num_picks, active_radius=active_radius,
+                        mask_radius=mask_radius)
+                    for b, res in zip(idx, out):
+                        results[b] = res
+            lap("select")
+            for b, res in enumerate(results):
                 mask_np = res.active_mask.to(torch.uint8).cpu().numpy()
                 active_np = res.active.cpu().numpy()
                 selected_np = res.selected.cpu().numpy()
@@ -140,7 +160,7 @@ def region_selection(cfg, model, active_loader, round_number: int,
                 if progress and stats["images"] % 200 == 0:
                     print(f"  [round {round_number}] {stats['images']} "
                           "images scored", flush=True)
-                lap("host")
+            lap("host")
         io_pool.shutdown(wait=True)  # all masks durable before returning
         lap("persist")
     finally:

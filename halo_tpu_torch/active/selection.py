@@ -6,8 +6,10 @@ truth and suppress the (2m+1)^2 neighbourhood, for ``num_picks`` picks.
 
 ``select_pixels_to_label`` is the plain column-cache loop;
 ``cuda_select_pixels_to_label`` runs the picks through kernel A
-(``cuda_select.greedy_picks``, its plain version on a CPU tensor). Both
-replay the picks onto the masks with ``apply_picks``.
+(``cuda_select.greedy_picks``, its plain version on a CPU tensor), and
+``cuda_select_pixels_to_label_batch`` does so for a stack of images of one
+size in one launch. All replay the picks onto the masks with
+``apply_picks``, image by image.
 """
 
 from __future__ import annotations
@@ -61,17 +63,25 @@ def apply_picks(picks, active_mask, ground_truth, active, selected, *,
     return am, sel, act
 
 
-def _select(picks_fn, score, active_mask, ground_truth, active, selected,
-            num_picks, active_radius, mask_radius):
-    score = torch.where(active, NEG_INF, score.float())
-    picks, num_picked = picks_fn(score, num_picks=num_picks,
-                                 mask_radius=mask_radius)
+def _replay(score, picks, num_picked, active_mask, ground_truth, active,
+            selected, active_radius, mask_radius):
+    """One image's result from its picks; ``score`` is already -inf on
+    ``active``."""
     am, sel, act = apply_picks(picks, active_mask, ground_truth, active,
                                selected, active_radius=active_radius,
                                mask_radius=mask_radius)
     # the suppressed score is -inf exactly on the updated active set
     score_out = torch.where(act, NEG_INF, score)
     return SelectionResult(score_out, act, sel, am, picks, num_picked)
+
+
+def _select(picks_fn, score, active_mask, ground_truth, active, selected,
+            num_picks, active_radius, mask_radius):
+    score = torch.where(active, NEG_INF, score.float())
+    picks, num_picked = picks_fn(score, num_picks=num_picks,
+                                 mask_radius=mask_radius)
+    return _replay(score, picks, num_picked, active_mask, ground_truth,
+                   active, selected, active_radius, mask_radius)
 
 
 def select_pixels_to_label(score, active_mask, ground_truth, active,
@@ -97,3 +107,21 @@ def cuda_select_pixels_to_label(score, active_mask, ground_truth, active,
     kernel A on a CUDA tensor (its plain version on a CPU tensor)."""
     return _select(greedy_picks, score, active_mask, ground_truth, active,
                    selected, num_picks, active_radius, mask_radius)
+
+
+def cuda_select_pixels_to_label_batch(scores, active_masks, ground_truths,
+                                      actives, selecteds, *, num_picks: int,
+                                      active_radius: int, mask_radius: int):
+    """cuda_select_pixels_to_label for n images of one size that share a
+    budget: each argument is an (n, H, W) stack of the per-image argument.
+    Masks every image's taken pixels with -inf, runs all picks in one
+    kernel-A launch (map by map on the CPU), then replays each image's
+    picks. Returns a list of n SelectionResult, each equal to what
+    cuda_select_pixels_to_label gives for that image."""
+    scores = torch.where(actives, NEG_INF, scores.float())
+    picks, num_picked = greedy_picks(scores, num_picks=num_picks,
+                                     mask_radius=mask_radius)
+    return [_replay(scores[i], picks[i], num_picked[i], active_masks[i],
+                    ground_truths[i], actives[i], selecteds[i],
+                    active_radius, mask_radius)
+            for i in range(scores.shape[0])]

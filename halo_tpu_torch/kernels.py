@@ -34,7 +34,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 _SIGNATURES = {
     "halo_radius_map_bf16": (_P, _P, _LL, _I, _I, _F, _F, _P),
     "halo_radius_map_f32": (_P, _P, _LL, _I, _I, _F, _F, _P),
-    "halo_greedy_picks": (_P, _I, _I, _I, _I, _P, _P, _P),
+    "halo_greedy_picks": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "halo_dilated_conv3x3_bf16": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "halo_dilated_conv3x3_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }

@@ -31,8 +31,10 @@ launches_dx = 0
 # layout (a cotangent handed back contiguous, for one).
 layout_copies = 0
 
-# Channels a reduction step of each instantiation reads: the alignment of
-# C and of Co (the input gradient's C).
+# The alignment each instantiation asks of C and of Co (the input
+# gradient's C): the f32 kernel reads 16 channels a step; the bf16 kernel
+# reads 64 and its TMA boxes zero-fill a partial step, so 32 (16-byte
+# aligned rows) is its rule.
 _K_ALIGN = {torch.bfloat16: 32, torch.float32: 16}
 _ENTRY = {torch.bfloat16: "halo_dilated_conv3x3_bf16",
           torch.float32: "halo_dilated_conv3x3_f32"}
@@ -57,9 +59,19 @@ def supports(x_shape, weight_shape, d: int, dtype) -> bool:
 
 def repack(weight):
     """(Co, C, 3, 3) conv weight, any strides -> contiguous (9, C, Co),
-    tap-major: the GEMM operand B of each tap."""
+    tap-major: the GEMM operand B of each tap (the plain version and the
+    float32 kernel)."""
     co, c = weight.shape[:2]
     return weight.permute(2, 3, 1, 0).reshape(9, c, co).contiguous()
+
+
+def repack_kmajor(weight):
+    """(Co, C, 3, 3) conv weight, any strides -> contiguous (9, Co, C):
+    each tap's operand B with the reduction dim C innermost, as the bf16
+    kernel's TMA boxes and wgmma descriptors read it (entry [3i+j, o, c] =
+    weight[o, c, i, j])."""
+    co, c = weight.shape[:2]
+    return weight.permute(2, 3, 0, 1).reshape(9, co, c).contiguous()
 
 
 def _taps(x_nhwc, d: int):
@@ -128,9 +140,10 @@ def _launch(x, weight, d: int):
         raise ValueError(f"dilated_conv3x3: unsupported shapes "
                          f"{tuple(x.shape)} / {tuple(weight.shape)}, d={d}")
     xh = _nhwc(x)
-    w9 = repack(weight)
+    w9 = repack_kmajor(weight) if x.dtype == torch.bfloat16 else \
+        repack(weight)
     b, h, w, c = xh.shape
-    co = w9.shape[-1]
+    co = weight.shape[0]
     y = torch.empty((b, h, w, co), dtype=x.dtype, device=x.device)
     if xh.data_ptr() % 16 or w9.data_ptr() % 16:
         raise ValueError("dilated_conv3x3: operands not 16-byte aligned")

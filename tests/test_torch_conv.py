@@ -50,6 +50,27 @@ def test_plain_forward_matches_jax_kernel(interpret, d):
         got.numpy(), dc.dilated_conv3x3_plain(xt, wt, d).numpy())
 
 
+@pytest.mark.parametrize("d", [1, 2])
+def test_kmajor_packing_matches_weight_and_jax_kernel(interpret, d):
+    """The bf16 kernel's operand B, (9, Co, C) with C innermost: entry
+    [3i+j, o, c] is weight[o, c, i, j], and the nine tap products over it
+    (what the kernel sums) give the JAX kernel's conv."""
+    x, k, _ = _case(5, (1, 8, 16, 64), 96)
+    xt, wt = _to_torch(x, k)
+    wk = dc.repack_kmajor(wt)
+    assert wk.shape == (9, 96, 64) and wk.is_contiguous()
+    for o, c, i, j in ((0, 0, 0, 0), (95, 63, 2, 2), (17, 40, 1, 2),
+                       (50, 3, 2, 0)):
+        assert float(wk[3 * i + j, o, c]) == float(wt[o, c, i, j])
+    torch.testing.assert_close(wk.transpose(1, 2), dc.repack(wt), rtol=0,
+                               atol=0)
+    taps = dc._taps(xt.permute(0, 2, 3, 1), d)
+    got = sum(slab @ wk[t].t() for t, slab in enumerate(taps))
+    want = pallas_conv.dilated_conv3x3(jnp.asarray(x), jnp.asarray(k), d)
+    np.testing.assert_allclose(got.reshape(1, 8, 16, 96).numpy(),
+                               np.asarray(want), rtol=1e-5, atol=1e-4)
+
+
 @pytest.mark.parametrize("shape,cout", [
     ((1, 8, 16, 128), 128),
     ((1, 8, 16, 128), 256),   # Cin != Cout

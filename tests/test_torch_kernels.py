@@ -82,6 +82,66 @@ def test_greedy_picks_runs_out(gen):
     assert (picks[2:] == -1).all()
 
 
+def test_greedy_picks_segments_and_edges(gen):
+    """A 1000x2048 map caches 128-row segments (1000 is not a multiple);
+    m = 130 >= 128, so a window spans three or four segments; the top
+    scores sit on the four edges and corners."""
+    h, w, m = 1000, 2048, 130
+    score = torch.randn((h, w), generator=gen, device="cuda")
+    edges = [(0, 0), (500, 0), (h - 1, 0), (0, 900), (h - 1, 1500),
+             (0, w - 1), (400, w - 1), (h - 1, w - 1)]  # in pick order
+    for r, c in edges:
+        score[r, c] = 10.0
+    got = cuda_select.greedy_picks(score, num_picks=40, mask_radius=m)
+    want = cuda_select.greedy_picks_reference(score, num_picks=40,
+                                              mask_radius=m)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[0][:len(edges)].tolist() == [list(e) for e in edges]
+
+
+def test_greedy_picks_batch_is_one_launch(gen):
+    """Four maps in one launch, each bit-exact with the plain version on
+    its own: random, a pre-active block, an early stop after 2 picks, a
+    tie plateau."""
+    maps = torch.randn((4, 200, 300), generator=gen, device="cuda")
+    maps[1, :50, :80] = float("-inf")
+    maps[2] = float("-inf")
+    maps[2, 10, 20], maps[2, 150, 250] = 1.0, 2.0
+    maps[3, 60:70, 100:130] = 5.0
+    before = cuda_select.launches
+    picks, counts = cuda_select.greedy_picks(maps, num_picks=50,
+                                             mask_radius=4)
+    assert cuda_select.launches == before + 1
+    assert picks.shape == (4, 50, 2) and counts.shape == (4,)
+    for i in range(4):
+        want = cuda_select.greedy_picks_reference(maps[i], num_picks=50,
+                                                  mask_radius=4)
+        assert torch.equal(picks[i], want[0]), i
+        assert int(counts[i]) == int(want[1]), i
+    assert int(counts[2]) == 2 and (picks[2, 2:] == -1).all()
+
+
+def test_select_batch_matches_plain_twin(gen):
+    n, h, w = 3, 48, 80
+    score = torch.randn((n, h, w), generator=gen, device="cuda")
+    gt = torch.randint(0, 19, (n, h, w), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    am = torch.full((n, h, w), 255, dtype=torch.int32, device="cuda")
+    active = torch.zeros((n, h, w), dtype=torch.bool, device="cuda")
+    active[0, :5, :9] = True
+    active[2, 20:, 40:] = True
+    selected = active.clone()
+    kw = dict(num_picks=math.ceil(h * w * 0.05 / 9), active_radius=1,
+              mask_radius=5)
+    got = tsel.cuda_select_pixels_to_label_batch(score, am, gt, active,
+                                                 selected, **kw)
+    for i in range(n):
+        want = tsel.select_pixels_to_label(score[i], am[i], gt[i],
+                                           active[i], selected[i], **kw)
+        for a, b in zip(got[i], want):
+            assert torch.equal(a, b), i
+
+
 def test_select_pixels_matches_plain_twin(gen):
     h, w = 48, 80
     score = torch.randn((h, w), generator=gen, device="cuda")
@@ -129,6 +189,12 @@ def _conv_case(gen, b, c, co, h, w, dtype):
     (2, 128, 128, 16, 32, 4, torch.bfloat16),
     (2, 128, 256, 16, 32, 2, torch.bfloat16),    # Cin != Cout
     (1, 64, 160, 7, 13, 3, torch.bfloat16),      # ragged tiles
+    (1, 32, 32, 5, 9, 1, torch.bfloat16),        # C < 64; H, W < a tile
+    (1, 32, 160, 11, 37, 2, torch.bfloat16),     # C < 64, Co = 160
+    (1, 96, 160, 13, 45, 4, torch.bfloat16),     # a partial 64-channel step
+    (1, 160, 96, 6, 70, 2, torch.bfloat16),      # Co: one full, one ragged
+    (1, 64, 256, 40, 320, 1, torch.bfloat16),    # 100 tiles: < 132 SMs
+    (2, 64, 512, 64, 96, 1, torch.bfloat16),     # 192 tiles: 60 as halves
     (2, 256, 256, 90, 160, 2, torch.bfloat16),   # layer3, source
     (2, 512, 512, 80, 160, 4, torch.bfloat16),   # layer4, target
     (2, 128, 256, 16, 32, 2, torch.float32),

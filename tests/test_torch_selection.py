@@ -87,3 +87,61 @@ def test_plain_picks_are_the_wrapper_cpu_route():
     b = cuda_select.greedy_picks_reference(score, num_picks=9, mask_radius=2)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert cuda_select.launches == 0
+
+
+def _stack_of_maps():
+    """Four (H, W) maps and their pre-active masks: a pre-active block, a
+    tie plateau, one that runs out of finite scores after 3 picks, and a
+    smooth (5x5 box-filtered) map."""
+    rng = np.random.default_rng(11)
+    scores = rng.normal(size=(4, H, W)).astype(np.float32)
+    active = np.zeros((4, H, W), bool)
+    active[0, 3:12, 10:30] = True
+    scores[1, 10:16, 20:28] = 4.0
+    scores[2] = -np.inf
+    scores[2, 5, 5], scores[2, 20, 40], scores[2, 30, 2] = 1.0, 3.0, 2.0
+    pad = np.pad(rng.normal(size=(H, W)), 2, mode="edge")
+    scores[3] = sum(pad[i:i + H, j:j + W] for i in range(5)
+                    for j in range(5)).astype(np.float32) / 25
+    return scores, active
+
+
+def test_batched_picks_match_jax_per_image():
+    scores, active = _stack_of_maps()
+    masked = np.where(active, -np.inf, scores).astype(np.float32)
+    picks, counts = cuda_select.greedy_picks(torch.from_numpy(masked),
+                                             num_picks=N, mask_radius=M)
+    assert picks.shape == (4, N, 2) and counts.shape == (4,)
+    for i in range(4):
+        ref = jsel.select_pixels_to_label(
+            jnp.asarray(scores[i]), jnp.full((H, W), 255, jnp.int32),
+            jnp.zeros((H, W), jnp.int32), jnp.asarray(active[i]),
+            jnp.zeros((H, W), bool), num_picks=N, active_radius=R,
+            mask_radius=M)
+        np.testing.assert_array_equal(picks[i].numpy(),
+                                      np.asarray(ref.picks), err_msg=str(i))
+        assert int(counts[i]) == int(ref.num_picked)
+    assert int(counts[2]) == 3 and (picks[2, 3:] == -1).all()
+
+
+def test_batched_selection_matches_jax_per_image():
+    scores, active = _stack_of_maps()
+    rng = np.random.default_rng(12)
+    gt = rng.integers(0, 19, (4, H, W)).astype(np.int32)
+    am = np.full((4, H, W), 255, np.int32)
+    selected = active.copy()
+    kw = dict(num_picks=N, active_radius=R, mask_radius=M)
+    got = tsel.cuda_select_pixels_to_label_batch(
+        *[torch.from_numpy(a.copy())
+          for a in (scores, am, gt, active, selected)], **kw)
+    assert len(got) == 4
+    for i in range(4):
+        ref = jsel.select_pixels_to_label(
+            *[jnp.asarray(a[i]) for a in (scores, am, gt, active, selected)],
+            **kw)
+        for field in ("picks", "active_mask", "active", "selected",
+                      "score"):
+            np.testing.assert_array_equal(
+                getattr(got[i], field).numpy(),
+                np.asarray(getattr(ref, field)), err_msg=f"{i} {field}")
+        assert int(got[i].num_picked) == int(ref.num_picked)
