@@ -43,6 +43,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
              the first step's real layer3/layer4 activations and
              cotangents; prints ms/step (median of steps 3-8), stages and
              peak memory, then ms/step with TPU.DENSE_CONV_MODE conv.
+  7. protocols  the pipeline on the same model width with
+             TPU.DENSE_CONV_MODE pallas over synthetic SYNTHIA (1280x760,
+             16-bit labels) and Cityscapes trees: (a) SYNTHIA source
+             pretraining, 3 steps, 16 classes; (b) source_free resumed
+             from (a)'s last.ckpt, round 1 at step 0, 3 steps; (c)
+             halo_tpu_torch.test.main on (b)'s last.ckpt with
+             TEST.SAVE_EMBED over 2 val images: mIoU*, the embed/*.pt
+             artifacts, one kernel-B launch a rich-eval batch, kernel C in
+             the eval forwards, and the first image's rich radius map
+             against the plain dist0 of its embedding; (d) GTAV fully_sup,
+             3 steps, no round. Kernel launches are counted around each
+             run; each run prints ms/step (or ms/img), loader wait and
+             peak memory.
 
 Prints the kernels JSON line, the card's name and power limit
 (nvidia-smi), and as the last line
@@ -108,6 +121,21 @@ def max_rel(torch, got, want) -> float:
     if bool((diff[zero] != 0).any()):
         return math.inf
     return float((diff[~zero] / want[~zero].abs()).max())
+
+
+def release(torch):
+    """Free what a finished run left on the device."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
 
 
 def ball_points(torch, shape, gen):
@@ -588,7 +616,6 @@ def phase_train(torch, args, report):
     """The source_target learner through halo_tpu_torch.train.main: round 1
     at step 0, ``TRAIN_STEPS`` train steps, validation, checkpoints; then
     the same steps with cuDNN convs for comparison."""
-    import gc
     import statistics
 
     from halo_tpu_torch import train
@@ -759,8 +786,7 @@ def phase_train(torch, args, report):
         if args.profile:
             profile_steps(torch, learner, args.profile)
         del learner, fresh, captured, before, after
-        gc.collect()
-        torch.cuda.empty_cache()
+        release(torch)
 
         torch.cuda.reset_peak_memory_stats()
         stages_conv = {}
@@ -782,8 +808,269 @@ def phase_train(torch, args, report):
         if args.profile:
             profile_steps(torch, learner, args.profile)
         del learner
-        gc.collect()
-        torch.cuda.empty_cache()
+        release(torch)
+
+
+def write_synthia(root: Path, n_images: int, seed: int):
+    """A synthetic SYNTHIA tree at the set's native 1280x760: images and
+    16-bit label-id PNGs under ``GT/LABELS`` (blocks of 8x8 pixels) with
+    the class-frequency table ``synthia_label_info.p``, from ``seed``."""
+    import pickle
+
+    import numpy as np
+    from PIL import Image
+    from halo_tpu_torch.data.datasets import ID_TO_TRAINID_16
+
+    rng = np.random.default_rng(seed)
+    ids = np.array(list(ID_TO_TRAINID_16) + [0], np.uint16)
+    syn = root / "synthia"
+    (syn / "images").mkdir(parents=True, exist_ok=True)
+    (syn / "GT" / "LABELS").mkdir(parents=True, exist_ok=True)
+    names, file_to_label = [], {}
+    for i in range(n_images):
+        name = f"{i:07d}.png"
+        img = rng.integers(0, 256, (95, 160, 3), np.uint8)
+        lab = rng.choice(ids, (95, 160))
+        Image.fromarray(img.repeat(8, 0).repeat(8, 1)).save(
+            syn / "images" / name)
+        Image.fromarray(lab.repeat(8, 0).repeat(8, 1)).save(
+            syn / "GT" / "LABELS" / name)
+        names.append(name)
+        file_to_label[name] = sorted(ID_TO_TRAINID_16[int(v)]
+                                     for v in np.unique(lab)
+                                     if int(v) in ID_TO_TRAINID_16)
+    label_to_file = [[n for n in names if c in file_to_label[n]]
+                     for c in range(16)]
+    with open(syn / "synthia_label_info.p", "wb") as f:
+        pickle.dump((label_to_file, file_to_label), f)
+    (root / "synthia_train_list.txt").write_text("\n".join(names) + "\n")
+
+
+def phase_protocols(torch, args, report):
+    """The pipeline: SYNTHIA source -> source_free resumed from it -> the
+    test entry with the rich eval; then GTAV fully_sup. Each run is driven
+    with every launch counter at 0 and read at once after it."""
+    import statistics
+
+    from halo_tpu_torch import test as test_entry
+    from halo_tpu_torch import train
+    from halo_tpu_torch.active import cuda_radius, cuda_select
+    from halo_tpu_torch.data import mask_cache
+    from halo_tpu_torch.engine import learners
+    from halo_tpu_torch.engine.state import load_state_dict_file
+    from halo_tpu_torch.models.layers import DilatedConv3x3
+    from halo_tpu_torch.ops import dilated_conv as dc
+    from halo_tpu_torch.ops.resize import resize_bilinear
+
+    card = card_line()
+    steps = 3
+
+    def counts():
+        return {"fwd": dc.launches_fwd, "dx": dc.launches_dx,
+                "radius_map": cuda_radius.launches,
+                "greedy_picks": cuda_select.launches}
+
+    def zero_counts():
+        dc.launches_fwd = dc.launches_dx = dc.layout_copies = 0
+        cuda_radius.launches = cuda_select.launches = 0
+
+    def expect(label, got, want):
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, want {want}")
+        print(f"{label}: launches {got}", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        data = root / "datasets"
+        t0 = time.perf_counter()
+        write_synthia(data, 4, args.seed)
+        write_cityscapes(data, args.images, args.seed)
+        write_cityscapes(data, 2, args.seed + 1, split="val")
+        print(f"protocols setup (synthetic SYNTHIA and Cityscapes trees): "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        def argv(recipe, name, resume="", *extra):
+            return ["-cfg", str(REPO / "configs" / recipe),
+                    "TPU.DENSE_CONV_MODE", "pallas", "MODEL.WEIGHTS", "",
+                    "resume", resume, "SOLVER.NUM_ITER", str(steps),
+                    "TPU.VAL_INTERVAL", "0", "TPU.DATASET_DIR", str(data),
+                    "OUTPUT_DIR", str(root / "out"), "NAME", name,
+                    "SEED", str(args.seed), *extra]
+
+        def run_train(label, recipe, name, resume="", *extra):
+            mask_cache.clear()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            t0 = time.perf_counter()
+            learner = train.main(argv(recipe, name, resume, *extra),
+                                 device=DEVICE, stage_seconds={})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = counts()
+            hist = learner.history
+            if len(hist) != steps or not all(
+                    math.isfinite(v) for rec in hist for k, v in rec.items()
+                    if k.startswith(("loss", "negative"))):
+                raise AssertionError(f"{label}: {hist}")
+            step_ms = [(a + b) * 1e3 for a, b in learner.step_seconds]
+            load_ms = [a * 1e3 for a, _ in learner.step_seconds]
+            print(f"{label} ({learner.protocol}, "
+                  f"{learner.cfg.MODEL.NUM_CLASSES} classes): ms/step median "
+                  f"of steps 2-{steps} {statistics.median(step_ms[1:]):.1f} "
+                  f"(loader wait {statistics.median(load_ms[1:]):.1f}); "
+                  f"each step {json.dumps([round(v, 1) for v in step_ms])}; "
+                  f"peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+                  f"run {wall:.1f} s; {card}", flush=True)
+            print(f"{label} losses: " + json.dumps(
+                [{k: round(v, 5) for k, v in rec.items()
+                  if k.startswith(("loss", "negative", "consistency"))}
+                 for rec in hist]), flush=True)
+            return learner, got
+
+        src, got = run_train("(a) source", "synthia/source_only.yaml",
+                             "source")
+        n_conv = sum(isinstance(m, DilatedConv3x3)
+                     for m in src.model.modules())
+        if n_conv != 25:
+            raise AssertionError(f"{n_conv} kernel-C convs, want 25")
+        expect("(a) source", got, {"fwd": n_conv * steps,
+                                   "dx": n_conv * steps, "radius_map": 0,
+                                   "greedy_picks": 0})
+        src_ckpt = str(Path(src.cfg.SAVE_DIR) / "last.ckpt")
+        del src
+        release(torch)
+
+        sf, got = run_train("(b) source_free", "synthia/source_free.yaml",
+                            "source_free", src_ckpt,
+                            "ACTIVE.SELECT_ITER", "[0]")
+        batches = math.ceil(args.images / int(sf.cfg.TPU.ACTIVE_BATCH))
+        if got["radius_map"] <= 0:
+            raise AssertionError(f"(b) kernel B never launched: {got}")
+        expect("(b) source_free", got, {
+            "fwd": n_conv * (steps + batches), "dx": n_conv * steps,
+            "radius_map": got["radius_map"], "greedy_picks": batches})
+        if sf.active_round != 2:
+            raise AssertionError(f"(b) rounds: {sf.active_round - 1}")
+        # round 1 ran on (a)'s weights: the resume took
+        before = load_state_dict_file(str(Path(sf.cfg.SAVE_DIR)
+                                          / "model_before_round_1.ckpt"))
+        if not all(torch.equal(v, before[k]) for k, v in
+                   load_state_dict_file(src_ckpt).items()):
+            raise AssertionError("(b) did not start from (a)'s last.ckpt")
+        del before
+        sf_ckpt = str(Path(sf.cfg.SAVE_DIR) / "last.ckpt")
+        del sf
+        release(torch)
+
+        # (c) the test entry; the rich step is wrapped to keep the first
+        # batch's outputs and to time each call between synchronisations.
+        make_rich = learners.make_rich_eval_step
+        kept, call_ms, test_cfg = [], [], []
+
+        def timed_rich(cfg, model):
+            step = make_rich(cfg, model)
+            test_cfg.append(cfg)
+
+            def run(img, label, flip=True):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(img, label, flip=flip)
+                torch.cuda.synchronize()
+                call_ms.append((time.perf_counter() - t0) * 1e3)
+                if not kept:
+                    kept.append(out)
+                return out
+
+            return run
+
+        learners.make_rich_eval_step = timed_rich
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            result = test_entry.main(
+                argv("synthia/test.yaml", "test", sf_ckpt,
+                     "TEST.SAVE_EMBED", "True"), device=DEVICE)
+            torch.cuda.synchronize()
+        finally:
+            learners.make_rich_eval_step = make_rich
+        wall = time.perf_counter() - t0
+        got = counts()
+        n_val = len(call_ms)
+        expect("(c) test", got, {"fwd": n_conv * n_val, "dx": 0,
+                                 "radius_map": n_val, "greedy_picks": 0})
+        if n_val != 2 or not ({"mIoU", "mAcc", "aAcc", "iou_class",
+                               "mIoU*"} <= set(result)) or not all(
+                math.isfinite(v) for v in (result["mIoU"], result["mIoU*"])):
+            raise AssertionError(f"(c) test result {result}, {n_val} batches")
+        embed_dir = root / "out" / "test" / "embed"
+        arts = sorted(embed_dir.glob("*.pt"))
+        if len(arts) != 2:
+            raise AssertionError(f"(c) artifacts {arts}")
+        # the embedding is the decoder's, at a quarter of the input size
+        w_in, h_in = test_cfg[0].INPUT.INPUT_SIZE_TEST
+        for path in arts:
+            blob = torch.load(path, weights_only=False)
+            shapes = {k: (str(v.dtype).split(".")[-1], tuple(v.shape))
+                      for k, v in blob.items()}
+            want = {"label": ("int32", (1, 1024, 2048)),
+                    "pred": ("int32", (1, 1024, 2048)),
+                    "output": ("float32", (1, 1024, 2048, 16)),
+                    "embed": ("float32", (1, h_in // 4, w_in // 4, 64))}
+            if shapes != want:
+                raise AssertionError(f"(c) {path.name}: {shapes}")
+        print(f"(c) test: mIoU {result['mIoU']:.4f}, mIoU* "
+              f"{result['mIoU*']:.4f} over {n_val} images; rich eval "
+              f"ms/img {json.dumps([round(v, 2) for v in call_ms])} "
+              f"(entry {wall:.1f} s with model build and resume); peak "
+              f"device memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+              f"artifacts {[p.name for p in arts]} with the JAX keys, "
+              f"dtypes and shapes; {card}", flush=True)
+        # The first image's rich radius map against the plain dist0 of
+        # the same embedding; t = tanh(r/2) near the ball's edge.
+        r = kept[0]
+        size = tuple(r["radius"].shape[1:3])
+        plain = resize_bilinear(cuda_radius.radius_map_reference(
+            r["embed"])[..., None], size)[..., 0]
+        t_diff = float((torch.tanh(r["radius"] / 2)
+                        - torch.tanh(plain / 2)).abs().max())
+        inner = torch.tanh(plain / 2) < 0.9
+        rel = (max_rel(torch, r["radius"][inner], plain[inner])
+               if bool(inner.any()) else 0.0)
+        if rel > 1e-6 or t_diff > 1e-6:
+            raise AssertionError(f"(c) rich radius off the plain dist0: "
+                                 f"rel {rel}, |t| diff {t_diff}")
+        emb = r["embed"]
+        direct = cuda_radius.radius_map(emb)
+        err = float((direct - cuda_radius.radius_map_reference(
+            emb)).abs().max())
+        # the embedding (13 MB) stays in L2 across these launches
+        ms = cuda_ms(torch, lambda i: cuda_radius.radius_map(emb), 64)
+        plain_ms = cuda_ms(
+            torch, lambda i: cuda_radius.radius_map_reference(emb), 16)
+        n = emb.numel() // emb.shape[-1]
+        b_ms, b_by = bound_ms(emb.numel() * 4 + n * 4, emb.numel() * 2)
+        print(f"(c) rich radius map {tuple(r['radius'].shape)} vs plain "
+              f"dist0: {float(inner.float().mean()):.4f} of pixels at "
+              f"t < 0.9 (max rel diff {rel:.3e}), max |t| diff "
+              f"{t_diff:.3e}; kernel B f32 on the {tuple(emb.shape)} "
+              f"embedding: max abs diff {err:.3e}, {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
+              flush=True)
+        del kept, r, emb, direct, plain
+        release(torch)
+
+        fs, got = run_train("(d) fully_sup", "gtav/fully_sup.yaml",
+                            "fully_sup")
+        expect("(d) fully_sup", got, {"fwd": 2 * n_conv * steps,
+                                      "dx": 2 * n_conv * steps,
+                                      "radius_map": 0, "greedy_picks": 0})
+        if "consistency_loss" in fs.history[0] or fs.active_iters:
+            raise AssertionError(f"(d) fully_sup: {fs.history[0]}")
+        del fs
+        release(torch)
 
 
 def main() -> int:
@@ -829,14 +1116,11 @@ def main() -> int:
     phase_conv(torch, gen, report)
     phase_slice(torch, args, report)
     phase_train(torch, args, report)
+    phase_protocols(torch, args, report)
     print(json.dumps({"kernels": [report["greedy_picks"],
                                   report["radius_map"],
                                   report["dilated_conv3x3"]]}), flush=True)
-
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

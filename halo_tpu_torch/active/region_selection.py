@@ -28,6 +28,7 @@ from ..data import mask_cache
 from ..data.masks import save_indicator, save_mask_png
 from ..device import resolve_device
 from ..engine.steps import make_forward
+from ..ops.resize import resize_bilinear
 from .scoring import fused_upsample_region_score
 from .selection import cuda_select_pixels_to_label_batch
 
@@ -41,7 +42,9 @@ def region_selection(cfg, model, active_loader, round_number: int,
                      progress: bool = True, device=None,
                      stage_seconds: Optional[Dict[str, float]] = None):
     """Run one acquisition round over ``active_loader``; returns
-    ``{'images', 'picked', 'labeled_px'}``.
+    ``{'images', 'picked', 'labeled_px'}``. With ``ACTIVE.VIZ_MASK`` the
+    round also plots image, score and mask of 20 fixed pseudo-random image
+    indices under ``SAVE_DIR/viz``.
 
     device: where the round runs — CUDA unless the caller passes another
     (``model`` must already live there). stage_seconds: when a dict is
@@ -57,10 +60,6 @@ def region_selection(cfg, model, active_loader, round_number: int,
         raise NotImplementedError(
             "ACTIVE.UNCERTAINTY 'random' (seeded noise scores) is not ported "
             "yet (ROADMAP.md Queue 1 item 8)")
-    if cfg.ACTIVE.VIZ_MASK:
-        raise NotImplementedError(
-            "ACTIVE.VIZ_MASK plots are not ported yet (ROADMAP.md Queue 1 "
-            "item 12)")
     per_region_pixels = (2 * cfg.ACTIVE.RADIUS_K + 1) ** 2
     active_radius = cfg.ACTIVE.RADIUS_K
     mask_radius = cfg.ACTIVE.MASK_RADIUS_K
@@ -77,6 +76,20 @@ def region_selection(cfg, model, active_loader, round_number: int,
     score_dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[
         str(getattr(cfg.TPU, "SCORING_DTYPE", "bfloat16"))]
     forward = make_forward(model)
+    # ACTIVE.VIZ_MASK: plots of 20 fixed pseudo-random image indices
+    viz_list = (set(np.random.RandomState(max(cfg.SEED, 0) + 1)
+                    .randint(0, 500, 20).tolist())
+                if cfg.ACTIVE.VIZ_MASK else set())
+
+    def viz(img, size, score, mask_np, name):
+        from ..utils.visualize import denormalize_image, visualization_plots
+        img_native = resize_bilinear(torch.from_numpy(img), size).numpy()
+        mean = np.asarray(cfg.INPUT.PIXEL_MEAN) * 255.0
+        std = np.asarray(cfg.INPUT.PIXEL_STD) * 255.0
+        visualization_plots(
+            denormalize_image(img_native, mean, std),
+            score.float().cpu().numpy(), mask_np, round_number, name,
+            cfg.SAVE_DIR, uncertainty=unc_type, purity=pur_type)
 
     clock = {"t": time.perf_counter()}
 
@@ -151,6 +164,9 @@ def region_selection(cfg, model, active_loader, round_number: int,
                 io_futures.append(io_pool.submit(
                     _persist, mask_np, active_np, selected_np,
                     batch["path_to_mask"][b], batch["path_to_indicator"][b]))
+                if stats["images"] in viz_list:
+                    viz(np.asarray(batch["img"][b], np.float32), sizes[b],
+                        scores[b], mask_np, batch["name"][b])
                 stats["images"] += 1
                 stats["picked"] += int(res.num_picked)
                 # this round's labeling: selected accumulates over rounds

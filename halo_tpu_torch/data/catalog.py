@@ -1,4 +1,4 @@
-"""Dataset catalog (the GTAV and Cityscapes part of
+"""Dataset catalog (the GTAV, SYNTHIA and Cityscapes part of
 ``halo_tpu/data/catalog.py``) and active-mask initialisation."""
 
 from __future__ import annotations
@@ -6,7 +6,7 @@ from __future__ import annotations
 import os
 from concurrent.futures import ThreadPoolExecutor
 
-from .datasets import CityscapesDataSet, GTAVDataSet
+from .datasets import CityscapesDataSet, GTAVDataSet, SynthiaDataSet
 from .masks import init_image_mask
 
 
@@ -14,6 +14,8 @@ class DatasetCatalog:
     DATASET_DIR = "datasets"
     DATASETS = {
         "gtav_train": {"data_dir": "gtav", "data_list": "gtav_train_list.txt"},
+        "synthia_train": {"data_dir": "synthia",
+                          "data_list": "synthia_train_list.txt"},
         "cityscapes_train": {"data_dir": "cityscapes",
                              "data_list": "cityscapes_train_list.txt"},
         "cityscapes_val": {"data_dir": "cityscapes",
@@ -38,15 +40,17 @@ class DatasetCatalog:
         if name not in DatasetCatalog.DATASETS:
             raise NotImplementedError(
                 f"Dataset {name!r} is not ported yet (ROADMAP.md Queue 1 "
-                "items 11-12); the port reads gtav and cityscapes.")
+                "item 12); the port reads gtav, synthia and cityscapes.")
         attrs = DatasetCatalog.DATASETS[name]
         data_dir = DatasetCatalog.dataset_dir(cfg)
         root = os.path.join(data_dir, attrs["data_dir"])
         data_list = os.path.join(data_dir, attrs["data_list"])
-        if name.startswith("gtav"):
-            return GTAVDataSet(root, data_list, max_iters=max_iters,
-                               num_classes=num_classes, split=mode,
-                               transform=transform, seed=seed)
+        source = {"gtav": GTAVDataSet, "synthia": SynthiaDataSet}.get(
+            name.split("_")[0])
+        if source is not None:
+            return source(root, data_list, max_iters=max_iters,
+                          num_classes=num_classes, split=mode,
+                          transform=transform, seed=seed)
         return CityscapesDataSet(
             root, data_list, save_dir=cfg.SAVE_DIR, max_iters=max_iters,
             num_classes=num_classes, split=mode, transform=transform,

@@ -1,6 +1,6 @@
-"""Datasets: the GTAV source set and the Cityscapes target set with the
-active-mask protocol (copy of ``halo_tpu/data/datasets.py:56-322``;
-SYNTHIA and ACDC are not ported yet).
+"""Datasets: the GTAV and SYNTHIA source sets and the Cityscapes target
+set with the active-mask protocol (copy of
+``halo_tpu/data/datasets.py:56-322``; ACDC is not ported yet).
 
 Samples are dicts of numpy arrays and strings, channel-last. A train-mode
 Cityscapes sample carries its label and its active mask (read from the
@@ -38,6 +38,16 @@ ID_TO_TRAINID_19 = {7: 0, 8: 1, 11: 2, 12: 3, 13: 4, 17: 5, 19: 6, 20: 7,
 ID_TO_TRAINID_16 = {7: 0, 8: 1, 11: 2, 12: 3, 13: 4, 17: 5, 19: 6, 20: 7,
                     21: 8, 23: 9, 24: 10, 25: 11, 26: 12, 28: 13, 32: 14,
                     33: 15}
+
+TRAINID2NAME_19 = {0: "road", 1: "sidewalk", 2: "building", 3: "wall",
+                   4: "fence", 5: "pole", 6: "light", 7: "sign",
+                   8: "vegetation", 9: "terrain", 10: "sky", 11: "person",
+                   12: "rider", 13: "car", 14: "truck", 15: "bus",
+                   16: "train", 17: "motocycle", 18: "bicycle"}
+TRAINID2NAME_16 = {0: "road", 1: "sidewalk", 2: "building", 3: "wall",
+                   4: "fence", 5: "pole", 6: "light", 7: "sign",
+                   8: "vegetation", 9: "sky", 10: "person", 11: "rider",
+                   12: "car", 13: "bus", 14: "motocycle", 15: "bicycle"}
 
 
 def remap_labels(label: np.ndarray, num_classes: int,
@@ -87,12 +97,14 @@ def balanced_file_list(label_to_file, file_to_label, num_classes, max_iters,
     return out
 
 
-class GTAVDataSet:
-    """GTAV source set: ``images/<name>`` and ``labels/<name>`` under the
-    data root. With ``max_iters`` the list is the class-balanced
-    resampling over the label-info pickle, repeated to ``max_iters``."""
+class _SourceDataset:
+    """A source set: ``images/<name>`` and ``<label_subdir>/<name>`` under
+    the data root. With ``max_iters`` the list is the class-balanced
+    resampling over the set's label-info pickle, repeated to
+    ``max_iters``."""
 
-    label_info_name = "gtav_label_info.p"
+    label_info_name = ""
+    label_subdir = "labels"
 
     def __init__(self, data_root, data_list, max_iters=None, num_classes=19,
                  split="train", transform=None, ignore_label=255, seed=0):
@@ -122,7 +134,7 @@ class GTAVDataSet:
                                          num_classes, max_iters, seed=seed)
         self.data_list: List[Dict] = [
             {"img": os.path.join(data_root, "images", name),
-             "label": os.path.join(data_root, "labels", name),
+             "label": os.path.join(data_root, self.label_subdir, name),
              "name": name} for name in img_ids]
         if max_iters is not None:
             self.data_list = _repeat_to(self.data_list, max_iters)
@@ -130,17 +142,39 @@ class GTAVDataSet:
     def __len__(self):
         return len(self.data_list)
 
+    def _read_label(self, path) -> np.ndarray:
+        return np.asarray(Image.open(path), dtype=np.uint8)
+
     def __getitem__(self, index, rng=None):
         files = self.data_list[index]
         image = Image.open(files["img"]).convert("RGB")
-        label = remap_labels(np.asarray(Image.open(files["label"]),
-                                        dtype=np.uint8),
+        label = remap_labels(self._read_label(files["label"]),
                              self.num_classes, self.ignore_label)
         label = Image.fromarray(label)
         if self.transform is not None:
             image, label = self.transform(image, label, rng)
         return {"img": image, "label": np.asarray(label), "index": index,
                 "name": files["name"]}
+
+
+class GTAVDataSet(_SourceDataset):
+    """GTAV: 8-bit label-id PNGs under ``labels/``."""
+
+    label_info_name = "gtav_label_info.p"
+
+
+class SynthiaDataSet(_SourceDataset):
+    """SYNTHIA: 16-bit label PNGs under ``GT/LABELS/`` whose semantic id is
+    channel 0 (the instance id rides in channel 1)."""
+
+    label_info_name = "synthia_label_info.p"
+    label_subdir = "GT/LABELS"
+
+    def _read_label(self, path) -> np.ndarray:
+        arr = np.asarray(Image.open(path))
+        if arr.ndim == 3:
+            arr = arr[..., 0]
+        return arr.astype(np.uint8)
 
 
 class CityscapesDataSet:

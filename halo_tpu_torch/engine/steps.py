@@ -1,6 +1,6 @@
 """Forward, train and eval steps of the port (port of
 ``halo_tpu/engine/steps.py``: ``make_forward`` :36-51, ``make_train_step``
-:80-158, ``make_eval_step`` :161-188).
+:80-158, ``make_eval_step`` :161-188, ``make_rich_eval_step`` :191-232).
 
 Loss stack per protocol:
   source        : CE(src)
@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..active.scoring import _radius_map, pixel_entropy
 from ..losses import (cross_entropy_loss, local_consistent_loss,
                       negative_learning_loss)
 from ..ops.resize import resize_bilinear
@@ -121,3 +122,41 @@ def make_eval_step(cfg, model):
                                       ignore)
 
     return eval_step
+
+
+def make_rich_eval_step(cfg, model):
+    """``rich_eval_step(img, label, flip=True) -> dict``: the eval step's
+    flip-TTA inference that also returns what the test entry point saves
+    and plots, all channel-last at the label's resolution unless said:
+    'prob' (n, H, W, K) flip-averaged softmax, 'pred' argmax, 'inter',
+    'union', 'target' histograms, 'entropy' (pixel entropy / log 19),
+    'embed' (n, h, w, E) flip-averaged float32 ball embedding at feature
+    resolution and 'radius', its distance to the origin (one kernel-B
+    launch for the batch on a CUDA tensor), resized bilinearly to (H, W).
+    The caller puts the model in eval mode."""
+    forward = make_forward(model)
+    num_classes = cfg.MODEL.NUM_CLASSES
+    ignore = cfg.INPUT.IGNORE_LABEL
+    curvature = float(cfg.MODEL.CURVATURE)
+
+    @torch.no_grad()
+    def rich_eval_step(img, label, flip=True):
+        n = img.shape[0]
+        x = torch.cat([img, img.flip(2)], 0) if flip else img
+        out, embed = forward(x, size=None)
+        size = tuple(label.shape[1:3])
+        p = F.softmax(resize_bilinear(out.float(), size), dim=-1)
+        if flip:
+            p = (p[:n] + p[n:].flip(2)) / 2.0
+        pred = p.argmax(dim=-1)
+        inter, union, target = intersection_and_union(pred, label,
+                                                      num_classes, ignore)
+        emb = embed.float()
+        if flip:
+            emb = (emb[:n] + emb[n:].flip(2)) / 2.0
+        radius = _radius_map(emb.contiguous(), curvature)
+        return {"prob": p, "pred": pred, "inter": inter, "union": union,
+                "target": target, "entropy": pixel_entropy(p), "embed": emb,
+                "radius": resize_bilinear(radius[..., None], size)[..., 0]}
+
+    return rich_eval_step

@@ -2,9 +2,11 @@
 
     python -m halo_tpu_torch.train -cfg PATH [KEY VALUE ...]
 
-runs the ``cfg.PROTOCOL`` learner on the CUDA device and raises without
+runs the ``cfg.PROTOCOL`` learner (``source``, ``source_free``,
+``source_target`` or ``fully_sup``) on the CUDA device and raises without
 one. ``main(argv, device="cpu")`` runs it on the CPU in-process (the tests
-do). Pretrained weights are not loaded yet: pass ``MODEL.WEIGHTS ""``.
+do). Pretrained ImageNet weights are not loaded yet: pass
+``MODEL.WEIGHTS ""``, or a ``resume`` checkpoint that holds the trunk.
 """
 
 from __future__ import annotations

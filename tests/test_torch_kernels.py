@@ -46,6 +46,21 @@ def test_radius_matches_plain(gen, shape, dtype):
     torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
 
 
+@pytest.mark.parametrize("h,w", [(80, 160), (160, 320)])
+def test_radius_f32_on_flip_averaged_embedding(gen, h, w):
+    """The rich eval's call: the f32 instantiation on a flip-averaged
+    (1, h, w, 64) embedding, through the scorer's entry, one launch; at a
+    640x1280 input the decoder's embedding is (1, 160, 320, 64)."""
+    from halo_tpu_torch.active.scoring import _radius_map
+    e = _ball((2, h, w, 64), gen, torch.float32)
+    x = (e[:1] + e[1:].flip(2)) / 2.0
+    before = cuda_radius.launches
+    got = _radius_map(x, 1.0)
+    assert cuda_radius.launches == before + 1 and got.shape == (1, h, w)
+    torch.testing.assert_close(got, cuda_radius.radius_map_reference(x),
+                               rtol=1e-6, atol=0)
+
+
 def test_radius_unaligned_view(gen):
     buf = _ball((9, 24), gen, torch.bfloat16).reshape(-1)
     x = buf[3:3 + 8 * 24].view(8, 24)  # 6-byte offset: scalar loads

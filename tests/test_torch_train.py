@@ -10,6 +10,7 @@ JAX package's process-wide conv globals are restored by monkeypatch.
 
 import os
 import random
+import types
 
 import flax.linen as fnn
 import jax
@@ -26,11 +27,17 @@ from halo_tpu.data import transforms as JT
 from halo_tpu.data.build import build_dataset as jax_build_dataset
 from halo_tpu.data.catalog import DatasetCatalog as JaxCatalog
 from halo_tpu.data.loader import DataLoader as JaxLoader
+from halo_tpu.engine import optim as jax_optim
+from halo_tpu.engine import steps as jax_steps
 from halo_tpu.engine.optim import build_optimizer as jax_build_optimizer
 from halo_tpu.engine.optim import torch_warmup_poly_schedule
 from halo_tpu.engine.state import state_from_variables
 from halo_tpu.engine.steps import make_train_step as jax_make_train_step
+from halo_tpu.losses import losses as jax_losses_mod
+from halo_tpu.models import build as jax_build
+from halo_tpu.models import classifier as jax_classifier
 from halo_tpu.models import layers as jax_layers
+from halo_tpu.models import resnet as jax_resnet
 from halo_tpu.models.build import build_segmentor as jax_build_segmentor
 from halo_tpu.models.port_torch import load_torch_module_params
 from halo_tpu.ops import pallas_conv
@@ -301,17 +308,17 @@ def jax_pallas(monkeypatch):
                         lambda self, inputs, *a, **k: inputs)
 
 
-def _batches(seed):
+def _batches(seed, size=64):
     rng = np.random.default_rng(seed)
 
     def labels(share_labeled):
-        lab = rng.integers(0, 19, (2, 64, 64)).astype(np.int32)
+        lab = rng.integers(0, 19, (2, size, size)).astype(np.int32)
         lab[rng.random(lab.shape) > share_labeled] = 255
         return lab
 
-    return {"source": {"img": _f32(rng.normal(size=(2, 64, 64, 3))),
+    return {"source": {"img": _f32(rng.normal(size=(2, size, size, 3))),
                        "label": labels(0.9)},
-            "target": {"img": _f32(rng.normal(size=(2, 64, 64, 3))),
+            "target": {"img": _f32(rng.normal(size=(2, size, size, 3))),
                        "label": labels(0.9), "mask": labels(0.05)}}
 
 
@@ -328,14 +335,52 @@ def _momentum(state):
     return jax.tree_util.tree_map(np.asarray, merged)
 
 
-def test_two_source_target_steps_match_jax(jax_pallas):
+class _Float32IsFloat64(types.ModuleType):
+    """``jax.numpy`` with ``float32`` read as ``float64``: put in place of
+    a JAX module's ``jnp``, it turns that module's explicit float32 casts
+    and compute dtype into float64."""
+
+    def __getattr__(self, name):
+        return jnp.float64 if name == "float32" else getattr(jnp, name)
+
+
+# The JAX modules of the train step that cast to float32 by name.
+# ops.hyperbolic is left out: it only reads float32 to pick its artanh
+# clamp, which must stay the float64 one, as in the port.
+_F32_CASTING = (jax_layers, jax_classifier, jax_resnet, jax_build,
+                jax_losses_mod, jax_steps, jax_optim)
+
+
+def _state_dict64(tree):
+    """``variables_to_state_dict`` of a param tree without its float32
+    rounding: the float64 leaves are split into three float32 parts (72
+    bits hold their 53), each part converted, and the parts summed."""
+    rest = jax.tree_util.tree_map(lambda v: np.asarray(v, np.float64), tree)
+    out = {}
+    for _ in range(3):
+        part = jax.tree_util.tree_map(lambda v: v.astype(np.float32), rest)
+        rest = jax.tree_util.tree_map(lambda v, p: v - p, rest, part)
+        for k, v in variables_to_state_dict({"params": part}).items():
+            out[k] = out[k] + v.double() if k in out else v.double()
+    return out
+
+
+def _source_target_steps(steps, dtype, jax_conv_mode, calls, size):
+    """Run ``steps`` source_target steps of resnettiny from the same init
+    in both packages at ``dtype`` on ``size`` x ``size`` batches,
+    appending to ``calls`` at each call of the port's kernel-C module;
+    yields, after each step, the step
+    index, both packages' metrics, the port's model, optimizer and
+    parameters before the step, and the JAX parameters before and after
+    it and its momentum buffers, as float64 state dicts."""
     jcfg = _step_cfg(jax_default_cfg)
+    jcfg.TPU.DENSE_CONV_MODE = jax_conv_mode
     jmodel = jax_build_segmentor(jcfg)
     variables = jmodel.init(
         {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
         jnp.zeros((1, 64, 64, 3), jnp.float32), train=False)
-    variables = jax.tree_util.tree_map(lambda v: jnp.asarray(v, jnp.float32),
-                                       variables)
+    variables = jax.tree_util.tree_map(
+        lambda v: jnp.asarray(np.asarray(v, np.float32), dtype), variables)
     tx, _ = jax_build_optimizer(jcfg, 1)
     state = state_from_variables(variables, tx)
     jstep = jax.jit(jax_make_train_step(jcfg, jmodel, tx, "source_target"))
@@ -344,21 +389,20 @@ def test_two_source_target_steps_match_jax(jax_pallas):
     model = build_segmentor(cfg, device="cpu")
     model.load_state_dict(variables_to_state_dict(
         jax.tree_util.tree_map(np.asarray, dict(variables))), strict=True)
+    model.to(torch.float64 if dtype == np.float64 else torch.float32)
     model.classifier.dropout.p = 0.0
     model.train()
     optimizer, scheduler, _ = build_optimizer(cfg, model)
     step = make_train_step(cfg, model, optimizer, "source_target")
     conv = model.feature_extractor.backbone.layer4[0].conv2
     assert isinstance(conv, DilatedConv3x3)
-    calls = []
     conv.register_forward_hook(lambda *a: calls.append(1))
-
-    names = [n for n, _ in model.named_parameters()]
-    for i in range(2):
+    for i in range(steps):
         before = {n: p.detach().clone() for n, p in model.named_parameters()}
-        jbefore = variables_to_state_dict(jax.device_get(
-            {"params": state.params}))
-        b = _batches(10 + i)
+        jbefore = _state_dict64(jax.device_get(state.params))
+        b = jax.tree_util.tree_map(
+            lambda v: v.astype(dtype) if v.dtype == np.float32 else v,
+            _batches(10 + i, size))
         state, jmetrics = jstep(
             state, jax.tree_util.tree_map(jnp.asarray, b),
             jax.random.PRNGKey(i))
@@ -367,18 +411,33 @@ def test_two_source_target_steps_match_jax(jax_pallas):
         scheduler.step()
         assert set(metrics) == set(jmetrics) == {
             "loss_sup", "loss_sup_tgt", "negative_loss", "loss"}
+        yield (i, metrics, jmetrics, model, optimizer, before, jbefore,
+               _state_dict64(jax.device_get(state.params)),
+               _state_dict64(_momentum(state)))
+
+
+def test_two_source_target_steps_match_jax(jax_pallas, monkeypatch):
+    """Step 0 in float32 on 64x64 batches, with the JAX model on kernel
+    C's Pallas kernel: loss terms within 1e-5, momentum buffers within
+    1e-4 of their max. Steps 0 and 1 in float64 on 32x32 batches (the JAX
+    model on XLA's convs, the port on kernel C's plain version; torch's
+    float64 CPU convs are slow): loss terms within 1e-12, momentum buffers
+    and updates within 1e-10 of their max. Step 1 is held in float64
+    only: in float32 the rounding of step 0, carried through a deep random
+    trunk into step 1's gradients, reaches ~6e-4 of some buffers' max on
+    64x64 batches, while in float64 the two packages agree to ~3e-13
+    there."""
+    calls = []
+    for (i, metrics, jmetrics, model, optimizer, before, jbefore, jafter,
+         jtrace) in _source_target_steps(1, np.float32, "pallas", calls, 64):
         for k, v in jmetrics.items():
             np.testing.assert_allclose(float(metrics[k]), float(v),
                                        rtol=1e-5, err_msg=k)
-        # The update of each step is -lr * (momentum buffer): compare the
+        # The update of a step is -lr * (momentum buffer): compare the
         # buffers, and after - before up to the float32 rounding of
         # storing p + update (a few ulps of p, which exceed 1e-4 of the
         # update where a deep random trunk's gradients are small).
-        jtrace = variables_to_state_dict({"params": _momentum(state)})
-        jafter = variables_to_state_dict(jax.device_get(
-            {"params": state.params}))
-        for n in names:
-            param = model.get_parameter(n)
+        for n, param in model.named_parameters():
             want = jtrace[n].numpy()
             got = optimizer.state[param]["momentum_buffer"].numpy()
             scale = float(np.abs(want).max())
@@ -393,13 +452,51 @@ def test_two_source_target_steps_match_jax(jax_pallas):
             np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * scale,
                                        err_msg=n)
             want = (jafter[n] - jbefore[n]).numpy()
-            got = (param.detach() - before[n]).numpy()
-            ulp = np.spacing(np.abs(before[n].numpy()))
+            got = (param.detach() - before[n]).double().numpy()
+            ulp = np.spacing(np.abs(before[n].numpy())).astype(np.float64)
             assert np.all(np.abs(got - want)
                           <= 1e-4 * np.abs(want).max() + 4 * ulp), n
-    # the route ran: both forwards of both steps went through the module,
+    # the route ran: both forwards of the step went through the module,
     # and its weight got a gradient from the custom backward
-    assert len(calls) == 4 and conv.weight.grad is not None
+    conv = model.feature_extractor.backbone.layer4[0].conv2
+    assert len(calls) == 2 and conv.weight.grad is not None
+
+    f64 = _Float32IsFloat64("jax.numpy")
+    for module in _F32_CASTING:
+        monkeypatch.setattr(module, "jnp", f64)
+    monkeypatch.setattr(torch.Tensor, "float",
+                        lambda self, *a, **k: self.double(*a, **k))
+    # torch's float64 CPU convs (grouped and dilated) take a slow path
+    # that gains nothing from threads
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _hold_float64_steps(calls)
+    finally:
+        torch.set_num_threads(threads)
+    assert len(calls) == 2 + 4
+
+
+def _hold_float64_steps(calls):
+    """Steps 0 and 1 in float64 on 32x32 batches, held at 1e-12 (loss
+    terms) and 1e-10 of the max (momentum buffers, updates)."""
+    for (i, metrics, jmetrics, model, optimizer, before, jbefore, jafter,
+         jtrace) in _source_target_steps(2, np.float64, "conv", calls, 32):
+        for k, v in jmetrics.items():
+            np.testing.assert_allclose(float(metrics[k]), float(v),
+                                       rtol=1e-12, err_msg=f"{i} {k}")
+        for n, param in model.named_parameters():
+            assert param.dtype == torch.float64, n
+            want = jtrace[n].numpy()
+            got = optimizer.state[param]["momentum_buffer"].numpy()
+            np.testing.assert_allclose(
+                got, want, rtol=0, atol=1e-10 * float(np.abs(want).max()),
+                err_msg=f"step {i} {n}")
+            want = (jafter[n] - jbefore[n]).numpy()
+            got = (param.detach() - before[n]).numpy()
+            np.testing.assert_allclose(
+                got, want, rtol=0, atol=1e-10 * float(np.abs(want).max()),
+                err_msg=f"step {i} {n}")
 
 
 def test_head_dropout_drops_whole_channels():
