@@ -56,6 +56,24 @@ Phases, each of which fails the run (non-zero exit) on any error:
              3 steps, no round. Kernel launches are counted around each
              run; each run prints ms/step (or ms/img), loader wait and
              peak memory.
+  8. families  the other DeepLab models and the control arm, full width,
+             TPU.DENSE_CONV_MODE pallas, launch counts zeroed before and
+             read after each run: (e) configs/gtav/ripu.yaml (Euclidean
+             v3+, 512 channels, LCR, purity ripu) with MODEL.WEIGHTS a
+             torchvision-layout R101 .pth written from --seed: the trunk
+             equals the file after the load, round 1 over the 8-image
+             Cityscapes tree, 3 steps, then the test entry on 2 val
+             images (kernel B f32 at C = 512 on the decoder features,
+             held against its plain version and timed); (f)
+             deeplabv2_resnet101 with MODEL.HYPER True on the headline
+             recipe: round 1 (kernel B on the input-resolution embedding),
+             3 steps, the test entry; (g) the random arm: a round with no
+             model (no forward, no kernel C), kernel A once a batch, the
+             score bits made on the card equal to the CPU's; (h) one
+             forward and backward of deeplabv3plus_resnet50, _resnet101
+             (also with TPU.REMAT), _resnet152 and _resnext101_32x8d at
+             2x640x1280, kernel-C launches by the eligibility rule (8, 25,
+             38, 0 convs; a rematerialised block's twice forward).
 
 Prints the kernels JSON line, the card's name and power limit
 (nvidia-smi), and as the last line
@@ -79,6 +97,11 @@ REPO = Path(__file__).resolve().parent
 DEVICE = "cuda"
 CONFIG = REPO / "configs" / "gtav" / "source_target.yaml"
 TRAIN_STEPS = 8  # train steps of the train phase; ms/step is over 3-8
+TRUNK_INPUT = (640, 1280)  # phase families (h): the target crop
+# phase families (h): (trunk, TPU.REMAT, kernel-C convs under the rule)
+TRUNKS = (("resnet50", False, 8), ("resnet101", False, 25),
+          ("resnet101", True, 25), ("resnet152", False, 38),
+          ("resnext101_32x8d", False, 0))
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, the float32
 # rate outside the tensor cores and the dense bf16 tensor-core rate.
@@ -1073,6 +1096,393 @@ def phase_protocols(torch, args, report):
         release(torch)
 
 
+def write_torchvision_trunk(torch, path: Path, arch: str, seed: int):
+    """A seeded torchvision-layout ``state_dict`` of ``arch`` (with the
+    ImageNet ``fc.*`` and BatchNorm counters) at ``path``: He-scaled conv
+    kernels, BatchNorm statistics near identity, and each block's last
+    BatchNorm scale in [0, 0.2), as a trained trunk has it, so the residual
+    stream stays bounded over 100 layers. Returns it."""
+    from halo_tpu_torch.config import get_default_cfg
+    from halo_tpu_torch.models import build_segmentor
+
+    cfg = get_default_cfg()
+    cfg.MODEL.NAME = f"deeplabv3plus_{arch}"
+    cfg.MODEL.FREEZE_BN = False   # live BN: its counters are in the keys
+    with torch.device("meta"):
+        keys = build_segmentor(cfg, device="meta").feature_extractor.\
+            backbone.state_dict()
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, v in keys.items():
+        shape = tuple(v.shape)
+        if k.endswith("num_batches_tracked"):
+            sd[k] = torch.tensor(100)
+        elif len(shape) == 4:
+            std = math.sqrt(2.0 / (shape[0] * shape[2] * shape[3]))
+            sd[k] = torch.randn(shape, generator=gen) * std
+        elif k.endswith(("bn3.weight", "downsample.1.weight")):
+            sd[k] = torch.rand(shape, generator=gen) * 0.2
+        elif k.endswith(("running_var", "weight")):
+            sd[k] = torch.rand(shape, generator=gen) + 0.5
+        else:
+            sd[k] = torch.randn(shape, generator=gen) * 0.1
+    sd["fc.weight"] = torch.zeros(1000, 2048)
+    sd["fc.bias"] = torch.zeros(1000)
+    torch.save(sd, path)
+    return sd
+
+
+def phase_families(torch, args, report):
+    """The other DeepLab models and the random control arm: (e) RIPU with a
+    pretrained trunk file, (f) DeepLab-v2 hyperbolic, each through round
+    1, 3 train steps and the test entry; (g) the random arm's round; (h)
+    forward and backward of the other trunks. Launch counters are zeroed
+    before each run and read at once after it."""
+    import statistics
+
+    from halo_tpu_torch import test as test_entry
+    from halo_tpu_torch import train
+    from halo_tpu_torch.active import cuda_radius, cuda_select
+    from halo_tpu_torch.active.region_selection import (random_arm_seed,
+                                                        region_selection)
+    from halo_tpu_torch.config import get_default_cfg
+    from halo_tpu_torch.data import mask_cache
+    from halo_tpu_torch.data.build import build_active_loader
+    from halo_tpu_torch.data.catalog import DatasetCatalog
+    from halo_tpu_torch.engine import learners, make_forward
+    from halo_tpu_torch.engine.state import load_state_dict_file
+    from halo_tpu_torch.losses import cross_entropy_loss
+    from halo_tpu_torch.models import build_segmentor
+    from halo_tpu_torch.models.layers import DilatedConv3x3
+    from halo_tpu_torch.ops import dilated_conv as dc
+    from halo_tpu_torch.ops import prng
+
+    card = card_line()
+    steps = 3
+
+    def counts():
+        return {"fwd": dc.launches_fwd, "dx": dc.launches_dx,
+                "radius_map": cuda_radius.launches,
+                "greedy_picks": cuda_select.launches}
+
+    def zero_counts():
+        dc.launches_fwd = dc.launches_dx = dc.layout_copies = 0
+        cuda_radius.launches = cuda_select.launches = 0
+
+    def expect(label, got, want):
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, want {want}")
+        print(f"{label}: launches {got}", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        data = root / "datasets"
+        t0 = time.perf_counter()
+        write_gtav(data, 4, args.seed)
+        write_cityscapes(data, args.images, args.seed)
+        write_cityscapes(data, 2, args.seed + 1, split="val")
+        weights = root / "resnet101_torchvision.pth"
+        trunk_file = write_torchvision_trunk(torch, weights, "resnet101",
+                                             args.seed)
+        print(f"families setup (synthetic GTAV and Cityscapes trees, "
+              f"torchvision-layout R101 file): "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        batches = math.ceil(args.images / 4)   # TPU.ACTIVE_BATCH 4
+
+        def argv(recipe, name, *extra):
+            return ["-cfg", str(REPO / "configs" / recipe),
+                    "TPU.DENSE_CONV_MODE", "pallas", "MODEL.WEIGHTS", "",
+                    "resume", "", "SOLVER.NUM_ITER", str(steps),
+                    "ACTIVE.SELECT_ITER", "[0]", "TPU.ACTIVE_BATCH", "4",
+                    "TPU.VAL_INTERVAL", "0", "TPU.DATASET_DIR", str(data),
+                    "OUTPUT_DIR", str(root / "out"), "NAME", name,
+                    "SEED", str(args.seed), *extra]
+
+        def run_train(label, recipe, name, *extra):
+            mask_cache.clear()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            t0 = time.perf_counter()
+            learner = train.main(argv(recipe, name, *extra), device=DEVICE,
+                                 stage_seconds={})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = counts()
+            hist = learner.history
+            if len(hist) != steps or not all(
+                    math.isfinite(v) for rec in hist for k, v in rec.items()
+                    if k.startswith(("loss", "negative", "consistency"))):
+                raise AssertionError(f"{label}: {hist}")
+            if learner.active_round != 2:
+                raise AssertionError(f"{label}: rounds "
+                                     f"{learner.active_round - 1}")
+            step_ms = [(a + b) * 1e3 for a, b in learner.step_seconds]
+            load_ms = [a * 1e3 for a, _ in learner.step_seconds]
+            print(f"{label} ({learner.cfg.MODEL.NAME}, HYPER "
+                  f"{learner.cfg.MODEL.HYPER}): ms/step median of steps "
+                  f"2-{steps} {statistics.median(step_ms[1:]):.1f} (loader "
+                  f"wait {statistics.median(load_ms[1:]):.1f}); each step "
+                  f"{json.dumps([round(v, 1) for v in step_ms])}; peak "
+                  f"device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+                  f"run {wall:.1f} s (round 1 over {args.images} images "
+                  f"included); {card}", flush=True)
+            print(f"{label} losses: " + json.dumps(
+                [{k: round(v, 5) for k, v in rec.items()
+                  if k.startswith(("loss", "negative", "consistency"))}
+                 for rec in hist]), flush=True)
+            return learner, got
+
+        def run_test(label, recipe, name, ckpt, want_embed, *extra):
+            """The test entry with TEST.SAVE_EMBED over the 2 val images;
+            returns the first batch's rich outputs and the counts."""
+            make_rich = learners.make_rich_eval_step
+            kept, call_ms = [], []
+
+            def timed_rich(cfg, model):
+                step = make_rich(cfg, model)
+
+                def run(img, label, flip=True):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = step(img, label, flip=flip)
+                    torch.cuda.synchronize()
+                    call_ms.append((time.perf_counter() - t0) * 1e3)
+                    if not kept:
+                        kept.append(out)
+                    return out
+
+                return run
+
+            learners.make_rich_eval_step = timed_rich
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            try:
+                result = test_entry.main(
+                    argv(recipe, name, "resume", ckpt, "TEST.SAVE_EMBED",
+                         "True", *extra), device=DEVICE)
+                torch.cuda.synchronize()
+            finally:
+                learners.make_rich_eval_step = make_rich
+            got = counts()
+            if len(call_ms) != 2 or not math.isfinite(result["mIoU"]):
+                raise AssertionError(f"{label}: {result}, {len(call_ms)} "
+                                     "batches")
+            arts = sorted((root / "out" / name / "embed").glob("*.pt"))
+            blob = torch.load(arts[0], weights_only=False)
+            if len(arts) != 2 or ("embed" in blob) != want_embed:
+                raise AssertionError(f"{label}: artifacts {arts}, keys "
+                                     f"{sorted(blob)}")
+            shapes = {k: tuple(v.shape) for k, v in blob.items()}
+            print(f"{label}: mIoU {result['mIoU']:.4f} over 2 images; rich "
+                  f"eval ms/img {json.dumps([round(v, 2) for v in call_ms])}"
+                  f"; peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+                  f"artifacts {shapes}; {card}", flush=True)
+            return kept[0], got
+
+        def hold_radius(label, emb):
+            """Kernel B on a rich eval's f32 embedding against its plain
+            version, and on the same features scaled into the ball (the
+            Euclidean decoder's features lie outside it, where the radius
+            saturates); times kernel, plain version and the norm call."""
+            inside = emb / (emb.norm(dim=-1, keepdim=True).max() * 1.05)
+            rel, t_diff = 0.0, 0.0
+            for x in (emb, inside.contiguous()):
+                got = cuda_radius.radius_map(x)
+                want = cuda_radius.radius_map_reference(x)
+                torch.cuda.synchronize()
+                t_diff = max(t_diff, float(
+                    (torch.tanh(got / 2) - torch.tanh(want / 2)).abs().max()))
+                inner = torch.tanh(want / 2) < 0.9
+                if bool(inner.any()):
+                    rel = max(rel, max_rel(torch, got[inner], want[inner]))
+            if rel > 1e-6 or t_diff > 1e-6:
+                raise AssertionError(f"{label}: kernel B off its plain "
+                                     f"version: rel {rel}, |t| {t_diff}")
+            inner = torch.tanh(cuda_radius.radius_map_reference(emb) / 2) \
+                < 0.9
+            ms = cuda_ms(torch, lambda i: cuda_radius.radius_map(emb), 64)
+            plain = cuda_ms(
+                torch, lambda i: cuda_radius.radius_map_reference(emb), 16)
+            lib = cuda_ms(torch, lambda i: torch.linalg.vector_norm(
+                emb, dim=-1), 64)
+            n = emb.numel() // emb.shape[-1]
+            b_ms, b_by = bound_ms(emb.numel() * 4 + n * 4, emb.numel() * 2)
+            print(f"{label}: kernel B f32 on the {tuple(emb.shape)} "
+                  f"embedding: {float(inner.float().mean()):.4f} of pixels "
+                  f"at t < 0.9; with the scaled copy max rel diff "
+                  f"{rel:.3e} (where t < 0.9), max |t| diff "
+                  f"{t_diff:.3e}; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                  f"vector_norm {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
+                  f"; {card}", flush=True)
+
+        # (e) RIPU with the pretrained trunk file.
+        ripu, got = run_train("(e) ripu", "gtav/ripu.yaml", "ripu",
+                              "MODEL.WEIGHTS", str(weights))
+        n_conv = sum(isinstance(m, DilatedConv3x3)
+                     for m in ripu.model.modules())
+        if n_conv != 25:
+            raise AssertionError(f"(e) {n_conv} kernel-C convs, want 25")
+        expect("(e) ripu", got, {
+            "fwd": n_conv * (2 * steps + batches), "dx": 2 * n_conv * steps,
+            "radius_map": 0, "greedy_picks": batches})
+        if "consistency_loss" not in ripu.history[0]:
+            raise AssertionError("(e) ripu ran without LCR")
+        # the trunk the round scored with is the file's
+        before = load_state_dict_file(str(Path(ripu.cfg.SAVE_DIR)
+                                          / "model_before_round_1.ckpt"))
+        prefix = "feature_extractor.backbone."
+        loaded = {k[len(prefix):]: v for k, v in before.items()
+                  if k.startswith(prefix)
+                  and not k.endswith("num_batches_tracked")}
+        if not loaded or not all(torch.equal(v, trunk_file[k])
+                                 for k, v in loaded.items()):
+            raise AssertionError("(e) the trunk is not MODEL.WEIGHTS' file")
+        print(f"(e) ripu: the trunk equals MODEL.WEIGHTS' file "
+              f"({len(loaded)} tensors) before round 1", flush=True)
+        ckpt = str(Path(ripu.cfg.SAVE_DIR) / "last.ckpt")
+        del ripu, before, loaded, trunk_file
+        release(torch)
+        r, got = run_test("(e) ripu test", "gtav/ripu.yaml", "ripu_test",
+                          ckpt, True)
+        expect("(e) ripu test", got, {"fwd": 2 * n_conv, "dx": 0,
+                                      "radius_map": 2, "greedy_picks": 0})
+        if r["embed"].shape[-1] != 512:
+            raise AssertionError(f"(e) decoder features {r['embed'].shape}")
+        hold_radius("(e) ripu test", r["embed"])
+        del r
+        release(torch)
+
+        # (f) DeepLab-v2, hyperbolic, on the headline recipe.
+        v2, got = run_train("(f) deeplabv2 hyper", "gtav/source_target.yaml",
+                            "deeplabv2", "MODEL.NAME", "deeplabv2_resnet101",
+                            "MODEL.WEIGHTS", str(weights))
+        w_in, h_in = v2.cfg.INPUT.INPUT_SIZE_TEST
+        blocks = args.images * math.ceil(1024 / 128)  # 128-row blocks
+        expect("(f) deeplabv2 hyper", got, {
+            "fwd": n_conv * (2 * steps + batches), "dx": 2 * n_conv * steps,
+            "radius_map": blocks, "greedy_picks": batches})
+        ckpt = str(Path(v2.cfg.SAVE_DIR) / "last.ckpt")
+        del v2
+        release(torch)
+        r, got = run_test("(f) deeplabv2 hyper test",
+                          "gtav/source_target.yaml", "deeplabv2_test", ckpt,
+                          True, "MODEL.NAME", "deeplabv2_resnet101")
+        expect("(f) deeplabv2 hyper test", got, {
+            "fwd": 2 * n_conv, "dx": 0, "radius_map": 2, "greedy_picks": 0})
+        if tuple(r["embed"].shape) != (1, h_in // 8, w_in // 8, 64):
+            raise AssertionError(f"(f) embedding {r['embed'].shape}")
+        hold_radius("(f) deeplabv2 hyper test", r["embed"])
+        del r
+        release(torch)
+
+        # (g) the random arm: no model, so no forward.
+        cfg = get_default_cfg()
+        cfg.set_new_allowed(True)
+        cfg.merge_from_file(str(CONFIG))
+        cfg.ACTIVE.UNCERTAINTY = "random"
+        cfg.TPU.DATASET_DIR = str(data)
+        cfg.TPU.ACTIVE_BATCH = 4
+        cfg.SAVE_DIR = str(root / "out" / "random")
+        cfg.SEED = args.seed
+        mask_cache.clear()
+        DatasetCatalog.init_mask(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        stages = {}
+        zero_counts()
+        t0 = time.perf_counter()
+        stats = region_selection(cfg, None, build_active_loader(cfg), 1,
+                                 device=DEVICE, stage_seconds=stages)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+        expect("(g) random arm", got, {"fwd": 0, "dx": 0, "radius_map": 0,
+                                       "greedy_picks": batches})
+        picks = math.ceil(1024 * 2048 * cfg.ACTIVE.BUDGET
+                          / len(cfg.ACTIVE.SELECT_ITER) / 9)
+        if stats["images"] != args.images or stats["picked"] != (
+                args.images * picks):
+            raise AssertionError(f"(g) random arm: {stats}")
+        seed = random_arm_seed(cfg.SEED, 1, 0)
+        on_card = prng.uniform(seed, (1024, 2048), device=DEVICE)
+        on_cpu = prng.uniform(seed, (1024, 2048))
+        if not torch.equal(on_card.cpu().view(torch.int32),
+                           on_cpu.view(torch.int32)):
+            raise AssertionError("(g) the card's random bits differ from "
+                                 "the CPU's")
+        bits_ms = cuda_ms(torch, lambda i: prng.uniform(
+            seed, (1024, 2048), device=DEVICE), 10)
+        print(f"(g) random arm: {stats}; {wall / args.images * 1e3:.1f} "
+              f"ms/img wall; stages ms/img " + json.dumps(
+                  {k: round(v / args.images * 1e3, 3)
+                   for k, v in sorted(stages.items())})
+              + f"; the card's score bits of image 0 equal the CPU's; one "
+              f"1024x2048 score map {bits_ms:.3f} ms; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+              f"{card}", flush=True)
+        del on_card, on_cpu
+        release(torch)
+
+        # (h) the other trunks, one forward and backward each.
+        h, w = TRUNK_INPUT
+        gen = torch.Generator(device=DEVICE).manual_seed(args.seed)
+        for arch, remat, want_conv in TRUNKS:
+            cfg = get_default_cfg()
+            cfg.set_new_allowed(True)
+            cfg.merge_from_file(str(CONFIG))
+            cfg.MODEL.NAME = f"deeplabv3plus_{arch}"
+            cfg.TPU.DENSE_CONV_MODE = "pallas"
+            cfg.TPU.REMAT = remat
+            label = f"(h) {arch}" + (" TPU.REMAT" if remat else "")
+            model = build_segmentor(
+                cfg, device=DEVICE,
+                generator=torch.Generator().manual_seed(args.seed)).train()
+            n_arch = sum(isinstance(m, DilatedConv3x3)
+                         for m in model.modules())
+            if n_arch != want_conv:
+                raise AssertionError(f"{label}: {n_arch} kernel-C convs, "
+                                     f"want {want_conv}")
+            img = torch.randn((2, h, w, 3), generator=gen, device=DEVICE)
+            target = torch.randint(0, 19, (2, h, w), generator=gen,
+                                   device=DEVICE)
+            forward = make_forward(model)
+
+            def step():
+                model.zero_grad(set_to_none=True)
+                logits, _ = forward(img)
+                loss = cross_entropy_loss(logits.float(), target)
+                loss.backward()
+                return loss
+
+            step()   # first call: cuDNN plans, allocator
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            t0 = time.perf_counter()
+            loss = step().detach()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            got = counts()
+            # the recompute of a rematerialised block runs its convs again
+            expect(label, got, {"fwd": n_arch * (2 if remat else 1),
+                                "dx": n_arch, "radius_map": 0,
+                                "greedy_picks": 0})
+            grads = [p.grad for p in model.parameters() if p.requires_grad]
+            if not (math.isfinite(float(loss)) and all(
+                    g is not None and bool(torch.isfinite(g).all())
+                    for g in grads)):
+                raise AssertionError(f"{label}: loss {float(loss)} or a "
+                                     "gradient not finite")
+            print(f"{label}: forward + backward at 2x{h}x{w} "
+                  f"{ms:.1f} ms, loss {float(loss):.4f}, {n_arch} kernel-C "
+                  f"convs; peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+                  f"{card}", flush=True)
+            del model, img, target, grads, loss
+            release(torch)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1117,6 +1527,7 @@ def main() -> int:
     phase_slice(torch, args, report)
     phase_train(torch, args, report)
     phase_protocols(torch, args, report)
+    phase_families(torch, args, report)
     print(json.dumps({"kernels": [report["greedy_picks"],
                                   report["radius_map"],
                                   report["dilated_conv3x3"]]}), flush=True)

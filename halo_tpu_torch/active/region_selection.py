@@ -10,6 +10,12 @@ Each updated mask and indicator is published to the in-process cache at
 once and written to disk on a background thread, overlapped with the next
 batch; the round waits for every write and raises on any failure.
 
+``ACTIVE.UNCERTAINTY 'random'`` is the control arm: no forward and no
+image copy to the device; each image's score map is
+``jax.random.uniform(PRNGKey(seed), (H, W))`` bit for bit (``ops/prng``),
+its seed a fixed mix of (``SEED``, round, image index in the sweep) as
+the JAX package mixes it, so the arm's masks are the JAX package's.
+
 The port runs eagerly, so it needs no compiled-program cache and no padding
 of the last batch.
 """
@@ -28,9 +34,18 @@ from ..data import mask_cache
 from ..data.masks import save_indicator, save_mask_png
 from ..device import resolve_device
 from ..engine.steps import make_forward
+from ..ops import prng
 from ..ops.resize import resize_bilinear
 from .scoring import fused_upsample_region_score
 from .selection import cuda_select_pixels_to_label_batch
+
+
+def random_arm_seed(seed: int, round_number: int, image_index: int) -> int:
+    """The ``random`` arm's PRNG seed of one image: the JAX package's
+    integer mix of (``SEED``, round, image index in the sweep)
+    (``halo_tpu/active/region_selection.py:303-312``)."""
+    return (max(int(seed), 0) * 2654435761 + int(round_number) * 40503
+            + int(image_index) * 2246822519) & 0x7FFFFFFF
 
 
 def _persist(mask, active, selected, mask_path, ind_path):
@@ -56,10 +71,7 @@ def region_selection(cfg, model, active_loader, round_number: int,
     dev = resolve_device(device)
     unc_type = cfg.ACTIVE.UNCERTAINTY
     pur_type = cfg.ACTIVE.PURITY
-    if unc_type == "random":
-        raise NotImplementedError(
-            "ACTIVE.UNCERTAINTY 'random' (seeded noise scores) is not ported "
-            "yet (ROADMAP.md Queue 1 item 8)")
+    random_score = unc_type == "random"
     per_region_pixels = (2 * cfg.ACTIVE.RADIUS_K + 1) ** 2
     active_radius = cfg.ACTIVE.RADIUS_K
     mask_radius = cfg.ACTIVE.MASK_RADIUS_K
@@ -69,9 +81,10 @@ def region_selection(cfg, model, active_loader, round_number: int,
                       num_classes=cfg.MODEL.NUM_CLASSES, K=cfg.ACTIVE.K,
                       normalize=bool(cfg.ACTIVE.NORMALIZE),
                       c=float(cfg.MODEL.CURVATURE))
-    needs_embed = (pur_type in ("hyper", "radius", "euc_norm")
-                   or unc_type in ("certainty", "hyperbolic")
-                   or (unc_type == "none" and cfg.MODEL.HYPER))
+    needs_embed = not random_score and (
+        pur_type in ("hyper", "radius", "euc_norm")
+        or unc_type in ("certainty", "hyperbolic")
+        or (unc_type == "none" and cfg.MODEL.HYPER))
     gt_needed = unc_type == "oracle_acc" or pur_type == "oracle_ripu"
     score_dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[
         str(getattr(cfg.TPU, "SCORING_DTYPE", "bfloat16"))]
@@ -109,11 +122,17 @@ def region_selection(cfg, model, active_loader, round_number: int,
     try:
         for batch in active_loader:
             lap("load")
-            imgs = torch.as_tensor(np.asarray(batch["img"]), device=dev)
-            with torch.no_grad():
-                logits, embed = forward(imgs)
+            n_img = len(batch["size"])
+            if not random_score:
+                imgs = torch.as_tensor(np.asarray(batch["img"]), device=dev)
+                with torch.no_grad():
+                    logits, embed = forward(imgs)
+                if needs_embed and embed is None:
+                    raise ValueError(
+                        f"ACTIVE.PURITY {pur_type!r} scores an embedding, "
+                        f"and {cfg.MODEL.NAME} with MODEL.HYPER "
+                        f"{cfg.MODEL.HYPER} returns none")
             lap("forward")
-            n_img = imgs.shape[0]
 
             def field(key, dtype, b):
                 return torch.as_tensor(np.asarray(batch[key][b]),
@@ -129,10 +148,15 @@ def region_selection(cfg, model, active_loader, round_number: int,
             gts = [field("origin_label", torch.int32, b)
                    for b in range(n_img)]
             with torch.no_grad():
-                scores = [fused_upsample_region_score(
-                    logits[b], embed[b] if needs_embed else None, sizes[b],
-                    gts[b] if gt_needed else None, score_dtype=score_dtype,
-                    **score_opts)[0] for b in range(n_img)]
+                scores = [
+                    prng.uniform(random_arm_seed(
+                        cfg.SEED, round_number, stats["images"] + b),
+                        sizes[b], device=dev) if random_score
+                    else fused_upsample_region_score(
+                        logits[b], embed[b] if needs_embed else None,
+                        sizes[b], gts[b] if gt_needed else None,
+                        score_dtype=score_dtype, **score_opts)[0]
+                    for b in range(n_img)]
             lap("score")
             groups = {}
             for b, size in enumerate(sizes):

@@ -133,7 +133,9 @@ _C.TPU.LOADER_WORKERS = 4
 # "grain" (multiprocess Grain DataLoader; identical sample streams).
 _C.TPU.LOADER = "threads"
 # Rematerialize backbone blocks in backward (more FLOPs, much less
-# activation memory -> larger per-chip batches).
+# activation memory -> larger per-chip batches). In the port each
+# Bottleneck runs under torch.utils.checkpoint; live BatchNorm running
+# statistics are updated once, as without it.
 _C.TPU.REMAT = False
 # Shifted-MAC depthwise stencil in TRAIN mode (custom VJP, layers.py:
 # depthwise_stencil). Eval always uses the stencil; False reverts

@@ -36,6 +36,7 @@ from ..data.catalog import DatasetCatalog
 from ..data.datasets import TRAINID2NAME_16, TRAINID2NAME_19
 from ..device import resolve_device
 from ..models import build_segmentor
+from ..models.pretrained import load_pretrained_backbone
 from ..utils.metrics import miou_from_histograms, miou_star
 from .optim import build_optimizer
 from .state import load_module_params, restore_state, save_checkpoint
@@ -65,17 +66,12 @@ class Learner:
         self.model = build_segmentor(
             cfg, device=self.device,
             generator=torch.Generator().manual_seed(self.seed))
-        held = {module: bool(cfg.resume) and load_module_params(
-                    self.model, cfg.resume, module)
-                for module in ("feature_extractor", "classifier")}
-        # The pretrained trunk is loaded before ``resume``, which replaces
-        # it whole when the checkpoint holds the trunk.
-        if cfg.MODEL.WEIGHTS and not held["feature_extractor"]:
-            raise NotImplementedError(
-                "MODEL.WEIGHTS: loading pretrained weights is not ported yet "
-                "(ROADMAP.md Queue 1 item 3); pass MODEL.WEIGHTS \"\" to "
-                "start from the seeded random init, or a resume checkpoint "
-                "that holds the feature extractor")
+        # The pretrained trunk (MODEL.WEIGHTS) first; ``resume`` then
+        # replaces each module its checkpoint holds.
+        load_pretrained_backbone(self.model, cfg.MODEL.WEIGHTS)
+        if cfg.resume:
+            for module in ("feature_extractor", "classifier"):
+                load_module_params(self.model, cfg.resume, module)
         self.model.train()
         self.optimizer, self.scheduler, self._lr_at = build_optimizer(
             cfg, self.model, self.num_devices)
@@ -464,11 +460,14 @@ class TestLearner(Learner):
         """``SAVE_DIR/embed/<name>.pt``: ``torch.save`` of the CPU tensors
         'label' (n, H, W) int32, 'pred' (n, H, W) int32, 'output'
         (n, H, W, K) float32 probabilities and 'embed' (n, h, w, E) float32,
-        channel-last, as the JAX package writes them."""
+        channel-last, as the JAX package writes them ('embed' only from a
+        head that returns an aux map)."""
         embed_dir = os.path.join(self.cfg.SAVE_DIR, "embed")
         os.makedirs(embed_dir, exist_ok=True)
         blob = {"label": label.to(torch.int32), "pred": r["pred"].to(
-            torch.int32), "output": r["prob"], "embed": r["embed"]}
+            torch.int32), "output": r["prob"]}
+        if "embed" in r:
+            blob["embed"] = r["embed"]
         torch.save({k: v.detach().cpu().contiguous()
                     for k, v in blob.items()},
                    os.path.join(embed_dir, name + ".pt"))
@@ -483,7 +482,8 @@ class TestLearner(Learner):
         mean = np.asarray(self.cfg.INPUT.PIXEL_MEAN) * 255.0
         std = np.asarray(self.cfg.INPUT.PIXEL_STD) * 255.0
         entropy = r["entropy"][0].cpu().numpy()
-        radius = r["radius"][0].cpu().numpy()
+        radius = (r["radius"][0].cpu().numpy() if "radius" in r
+                  else np.zeros_like(entropy))
         visualize_wrong(
             denormalize_image(img_native, mean, std),
             r["pred"][0].cpu().numpy(), label[0].cpu().numpy(), entropy,

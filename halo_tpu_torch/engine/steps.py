@@ -32,10 +32,13 @@ def make_forward(model):
     """forward(x) = classifier(feature_extractor(x), size=input size).
 
     ``x`` is a channel-last (B, H, W, 3) image batch on the model's device.
-    Returns channel-last ``(logits, embed)``: float32 logits upsampled to
-    the input size (``size=None``: left at feature resolution) and the
-    float32 ball embedding at feature resolution. The trunk and decoder run
-    under autocast in ``model.compute_dtype``.
+    Returns the head's channel-last ``(logits, aux)``: logits upsampled to
+    the input size (``size=None``: left at feature resolution), float32
+    from the hyperbolic heads and in the compute dtype from the Euclidean
+    ones; ``aux`` the float32 ball embedding (at feature resolution, or at
+    ``size`` from the DeepLab-v2 hyperbolic head), the Euclidean v3+
+    head's decoder features, or None (Euclidean v2). The trunk and the
+    head's convs run under autocast in ``model.compute_dtype``.
     """
 
     def forward(x, size="input"):
@@ -129,11 +132,13 @@ def make_rich_eval_step(cfg, model):
     flip-TTA inference that also returns what the test entry point saves
     and plots, all channel-last at the label's resolution unless said:
     'prob' (n, H, W, K) flip-averaged softmax, 'pred' argmax, 'inter',
-    'union', 'target' histograms, 'entropy' (pixel entropy / log 19),
-    'embed' (n, h, w, E) flip-averaged float32 ball embedding at feature
-    resolution and 'radius', its distance to the origin (one kernel-B
-    launch for the batch on a CUDA tensor), resized bilinearly to (H, W).
-    The caller puts the model in eval mode."""
+    'union', 'target' histograms, 'entropy' (pixel entropy / log 19), and
+    when the head returns an aux map: 'embed' (n, h, w, E), the
+    flip-averaged float32 aux at feature resolution (the ball embedding,
+    or the Euclidean v3+ decoder's features), and 'radius', its distance
+    to the origin (one kernel-B launch for the batch on a CUDA tensor),
+    resized bilinearly to (H, W). The caller puts the model in eval
+    mode."""
     forward = make_forward(model)
     num_classes = cfg.MODEL.NUM_CLASSES
     ignore = cfg.INPUT.IGNORE_LABEL
@@ -151,12 +156,16 @@ def make_rich_eval_step(cfg, model):
         pred = p.argmax(dim=-1)
         inter, union, target = intersection_and_union(pred, label,
                                                       num_classes, ignore)
-        emb = embed.float()
-        if flip:
-            emb = (emb[:n] + emb[n:].flip(2)) / 2.0
-        radius = _radius_map(emb.contiguous(), curvature)
-        return {"prob": p, "pred": pred, "inter": inter, "union": union,
-                "target": target, "entropy": pixel_entropy(p), "embed": emb,
-                "radius": resize_bilinear(radius[..., None], size)[..., 0]}
+        results = {"prob": p, "pred": pred, "inter": inter, "union": union,
+                   "target": target, "entropy": pixel_entropy(p)}
+        if embed is not None:
+            emb = embed.float()
+            if flip:
+                emb = (emb[:n] + emb[n:].flip(2)) / 2.0
+            radius = _radius_map(emb.contiguous(), curvature)
+            results["embed"] = emb
+            results["radius"] = resize_bilinear(radius[..., None],
+                                                size)[..., 0]
+        return results
 
     return rich_eval_step

@@ -1,28 +1,80 @@
-"""Model factory: ``Segmentor`` and ``build_segmentor``.
+"""Model registry and factory: ``Segmentor`` and ``build_segmentor``.
 
-Port of ``halo_tpu/models/build.py:129-169`` for the headline recipe's
-model, ``deeplabv3plus_<resnet>`` with ``MODEL.HYPER True``.
+Port of ``halo_tpu/models/build.py:39-169``. ``MODEL.NAME`` is
+``<head>_<backbone>``: the head ``deeplabv2`` or ``deeplabv3plus``,
+crossed with ``MODEL.HYPER``, on a backbone of the ResNet/ResNeXt family.
+SegFormer heads and MiT backbones are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..device import resolve_device
-from .classifier import SeparableASPPHyperHead
-from .resnet import resnet_feature_extractor
+from .classifier import (ASPPv2Head, ASPPv2HyperHead, SeparableASPPHead,
+                         SeparableASPPHyperHead)
+from .resnet import ARCHS, resnet_feature_extractor
+
+BACKBONES: Dict[str, Callable[..., nn.Module]] = {
+    name: (lambda cfg, _n=name: resnet_feature_extractor(
+        _n, freeze_bn=bool(cfg.MODEL.FREEZE_BN),
+        dense_conv_mode=str(cfg.TPU.DENSE_CONV_MODE),
+        remat=bool(cfg.TPU.REMAT)))
+    for name in ARCHS}
+
+HEADS: Dict[Tuple[str, bool], Callable[..., nn.Module]] = {
+    ("deeplabv2", False): lambda cfg: ASPPv2Head(cfg.MODEL.NUM_CLASSES),
+    ("deeplabv2", True): lambda cfg: ASPPv2HyperHead(
+        cfg.MODEL.NUM_CLASSES, cfg.MODEL.REDUCED_CHANNELS,
+        float(cfg.MODEL.CURVATURE)),
+    ("deeplabv3plus", False): lambda cfg: SeparableASPPHead(
+        cfg.MODEL.NUM_CLASSES, cfg.MODEL.REDUCED_CHANNELS,
+        hfr=bool(cfg.MODEL.HFR), freeze_bn=bool(cfg.MODEL.FREEZE_BN)),
+    ("deeplabv3plus", True): lambda cfg: SeparableASPPHyperHead(
+        cfg.MODEL.NUM_CLASSES, cfg.MODEL.REDUCED_CHANNELS,
+        curvature=float(cfg.MODEL.CURVATURE), hfr=bool(cfg.MODEL.HFR),
+        freeze_bn=bool(cfg.MODEL.FREEZE_BN)),
+}
+
+_NOT_PORTED = ("segformer", "mit_")
+
+
+def build_feature_extractor(cfg) -> nn.Module:
+    """The trunk of ``MODEL.NAME``."""
+    _, backbone_name = cfg.MODEL.NAME.split("_", 1)
+    if backbone_name.startswith(_NOT_PORTED):
+        raise NotImplementedError(
+            f"Backbone {backbone_name!r} is not ported yet (ROADMAP.md "
+            "Queue 1 item 12: SegFormer/MiT and ACDC)")
+    if backbone_name not in BACKBONES:
+        raise NotImplementedError(f"Unsupported backbone: {backbone_name}.")
+    return BACKBONES[backbone_name](cfg)
+
+
+def build_classifier(cfg) -> nn.Module:
+    """The head of ``MODEL.NAME`` and ``MODEL.HYPER``."""
+    head_name, _ = cfg.MODEL.NAME.split("_", 1)
+    if head_name.startswith(_NOT_PORTED):
+        raise NotImplementedError(
+            f"Head {head_name!r} is not ported yet (ROADMAP.md Queue 1 "
+            "item 12: SegFormer/MiT and ACDC)")
+    key = (head_name, bool(cfg.MODEL.HYPER))
+    if key not in HEADS:
+        raise NotImplementedError(f"Unsupported classifier: {head_name}.")
+    return HEADS[key](cfg)
 
 
 class Segmentor(nn.Module):
     """feature_extractor + classifier, named like the upstream checkpoint
     prefixes (``feature_extractor.``/``classifier.``).
 
-    ``forward`` takes an NCHW image batch and returns channel-last
-    ``(logits, embed)``: logits upsampled to ``size`` when given, the ball
-    embedding at feature resolution.
+    ``forward`` takes an NCHW image batch and returns the head's
+    channel-last ``(logits, aux)``: logits upsampled to ``size`` when
+    given; ``aux`` the ball embedding (hyperbolic heads), the decoder's
+    features (Euclidean v3+) or None (Euclidean v2).
     """
 
     def __init__(self, feature_extractor: nn.Module, classifier: nn.Module):
@@ -41,34 +93,21 @@ def _compute_dtype(cfg) -> torch.dtype:
 
 def build_segmentor(cfg, device=None,
                     generator: Optional[torch.Generator] = None) -> Segmentor:
-    """Build the recipe's segmentor on ``device`` (CUDA unless the caller
-    passes another), in eval mode, with a seeded random init from
-    ``generator`` (default: seeded with ``max(cfg.SEED, 0)``).
+    """Build the segmentor of ``MODEL.NAME`` and ``MODEL.HYPER`` on
+    ``device`` (CUDA unless the caller passes another), in eval mode, with
+    a seeded random init from ``generator`` (default: seeded with
+    ``max(cfg.SEED, 0)``).
 
     ``model.compute_dtype`` is the autocast dtype for the trunk and the
-    decoder (``TPU.COMPUTE_DTYPE``). ``TPU.DENSE_CONV_MODE "pallas"`` routes
-    the trunk's eligible dilated 3x3 convs to kernel C; every other mode
-    keeps cuDNN. The learner calls ``.train()``. Pretrained ``.pth``
-    loading is a separate step (``load_state_dict``; ``models.convert``
-    carries JAX weights across).
+    head's convs (``TPU.COMPUTE_DTYPE``). ``TPU.DENSE_CONV_MODE "pallas"``
+    routes the trunk's eligible dilated 3x3 convs to kernel C; every other
+    mode keeps cuDNN. ``TPU.REMAT`` recomputes the trunk's blocks in the
+    backward pass. The learner calls ``.train()``. Pretrained weights are a
+    separate step (``models.pretrained``; ``models.convert`` carries JAX
+    weights across).
     """
     dev = resolve_device(device)
-    head_name, backbone_name = cfg.MODEL.NAME.split("_", 1)
-    if head_name != "deeplabv3plus" or not bool(cfg.MODEL.HYPER):
-        raise NotImplementedError(
-            f"Model {cfg.MODEL.NAME!r} with MODEL.HYPER={cfg.MODEL.HYPER} is "
-            "not ported yet (ROADMAP.md Queue 1 item 12); the port has "
-            "deeplabv3plus_<resnet> with MODEL.HYPER True.")
-    freeze_bn = bool(cfg.MODEL.FREEZE_BN)
-    model = Segmentor(
-        resnet_feature_extractor(
-            backbone_name, freeze_bn=freeze_bn,
-            dense_conv_mode=str(cfg.TPU.DENSE_CONV_MODE)),
-        SeparableASPPHyperHead(
-            num_classes=cfg.MODEL.NUM_CLASSES,
-            reduced_channels=cfg.MODEL.REDUCED_CHANNELS,
-            curvature=float(cfg.MODEL.CURVATURE), hfr=bool(cfg.MODEL.HFR),
-            freeze_bn=freeze_bn))
+    model = Segmentor(build_feature_extractor(cfg), build_classifier(cfg))
     if generator is None:
         generator = torch.Generator().manual_seed(max(int(cfg.SEED), 0))
     model.feature_extractor.init_weights(generator)

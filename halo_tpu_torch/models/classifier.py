@@ -1,16 +1,19 @@
-"""DeepLab-v3+ hyperbolic segmentation head in PyTorch.
+"""DeepLab-v2 and v3+ segmentation heads, Euclidean and hyperbolic, in
+PyTorch.
 
-Port of ``SeparableASPPHyperHead`` and its parts from
-``halo_tpu/models/classifier.py``: ``_ASPPDecoder`` (``ASPPDecoder``),
-``HFRNorm`` (``hfr_norm``) and ``HyperMLRHead`` (``HyperMLR``).
-Modules run NCHW internally; parameter names are the upstream torch
-head's (``parallel_branches.*``, ``global_branch.*``, ``bottleneck.*``,
-``shortcut.*``, ``decoder.*``, ``conv_reduce``, ``wn_mlp.*``,
-``conv_seg.P_MLR``/``A_MLR``).
+Port of ``halo_tpu/models/classifier.py``: ``ASPPv2Head``,
+``ASPPv2HyperHead``, ``SeparableASPPHead`` and ``SeparableASPPHyperHead``,
+with their parts ``_ASPPDecoder`` (``ASPPDecoder``), ``HFRNorm``
+(``hfr_norm``) and ``HyperMLRHead`` (``HyperMLR``). Modules run NCHW
+internally and return channel-last ``(logits, aux)``; parameter names are
+the upstream torch heads' (``conv2d_list.*``, ``parallel_branches.*``,
+``global_branch.*``, ``bottleneck.*``, ``shortcut.*``, ``decoder.*``,
+``cls_conv``, ``conv_reduce``, ``wn_mlp.*``, ``conv_seg.P_MLR``/``A_MLR``).
 
-dtype boundaries follow the JAX head: the decoder runs in the autocast
-dtype (bf16 under ``TPU.COMPUTE_DTYPE bfloat16``), while HFR, ``expmap`` and
-the MLR run in float32 with autocast off.
+dtype boundaries follow the JAX heads: convs run in the autocast dtype
+(bf16 under ``TPU.COMPUTE_DTYPE bfloat16``), so the Euclidean heads' logits
+come out in it, while HFR, ``expmap`` and the MLR run in float32 with
+autocast off.
 """
 
 from __future__ import annotations
@@ -29,6 +32,49 @@ from .layers import (ConvBNReLU, DepthwiseSeparableConv, init_conv_,
 def _resize_nchw(x, out_hw):
     """Channel-last resize_bilinear applied to an NCHW tensor."""
     return resize_bilinear(x.permute(0, 2, 3, 1), out_hw).permute(0, 3, 1, 2)
+
+
+def _nhwc(x):
+    return x.permute(0, 2, 3, 1)
+
+
+def _init_head_(head: nn.Module, generator: torch.Generator):
+    """Kaiming-normal fan_in convs with torch-default biases,
+    torch-default Linear layers, U(+-1/sqrt(C)) MLR params and identity
+    norms, as the JAX heads initialise; ``conv2d_list`` (the v2 ASPP
+    convs) takes N(0, 0.01) kernels."""
+    aspp = set(getattr(head, "conv2d_list", ()))
+    for mod in head.modules():
+        if mod in aspp:
+            with torch.no_grad():
+                mod.weight.normal_(0.0, 0.01, generator=generator)
+            uniform_fan_in_(mod.bias, mod.weight[0].numel(), generator)
+        elif isinstance(mod, nn.Conv2d):
+            init_conv_(mod, "fan_in", generator)
+        elif isinstance(mod, nn.Linear):
+            uniform_fan_in_(mod.weight, mod.in_features, generator)
+            uniform_fan_in_(mod.bias, mod.in_features, generator)
+        elif isinstance(mod, HyperMLR):
+            channels = mod.P_MLR.shape[1]
+            uniform_fan_in_(mod.P_MLR, channels, generator)
+            uniform_fan_in_(mod.A_MLR, channels, generator)
+    reset_norms_(head)
+
+
+def _aspp_convs(out_channels: int, dilations, in_channels: int = 2048):
+    """The DeepLab-v2 ASPP's dilated 3x3 convs with bias."""
+    return nn.ModuleList(
+        nn.Conv2d(in_channels, out_channels, 3, padding=d, dilation=d,
+                  bias=True) for d in dilations)
+
+
+def _aspp_sum(convs, x):
+    """The sum of the ASPP convs of ``x``, in order."""
+    out = None
+    for conv in convs:
+        y = conv(x)
+        out = y if out is None else out + y
+    return out
 
 
 class ASPPDecoder(nn.Module):
@@ -62,7 +108,7 @@ class ASPPDecoder(nn.Module):
         y = self.bottleneck(torch.cat(branches, dim=1))
         y = _resize_nchw(y, low.shape[2:])
         y = torch.cat([y, self.shortcut(low)], dim=1)
-        return self.decoder(y)
+        return self.decoder[1](self.decoder[0](y))
 
 
 def make_wn_mlp(channels: int) -> nn.Sequential:
@@ -134,17 +180,96 @@ class SeparableASPPHyperHead(ASPPDecoder):
                 out = resize_bilinear(out, size)
         return out, embed
 
-    def init_weights(self, generator: torch.Generator):
-        """Kaiming-normal fan_in convs with torch-default biases,
-        torch-default Linear layers, U(+-1/sqrt(C)) MLR params and
-        identity norms, as the JAX head initialises."""
-        for mod in self.modules():
-            if isinstance(mod, nn.Conv2d):
-                init_conv_(mod, "fan_in", generator)
-            elif isinstance(mod, nn.Linear):
-                uniform_fan_in_(mod.weight, mod.in_features, generator)
-                uniform_fan_in_(mod.bias, mod.in_features, generator)
-        channels = self.conv_seg.P_MLR.shape[1]
-        uniform_fan_in_(self.conv_seg.P_MLR, channels, generator)
-        uniform_fan_in_(self.conv_seg.A_MLR, channels, generator)
-        reset_norms_(self)
+    init_weights = _init_head_
+
+
+class ASPPv2Head(nn.Module):
+    """DeepLab-v2 ASPP: the sum of four dilated 3x3 convs (d = 6, 12, 18,
+    24) straight to the class logits. Returns ``(logits, None)``, logits
+    upsampled to ``size`` when given."""
+
+    def __init__(self, num_classes: int, dilations=(6, 12, 18, 24)):
+        super().__init__()
+        self.conv2d_list = _aspp_convs(num_classes, dilations)
+
+    def forward(self, feats, size: Optional[Tuple[int, int]] = None):
+        x = feats["out"]
+        out = _nhwc(_aspp_sum(self.conv2d_list, x))
+        if size is not None:
+            out = resize_bilinear(out, size)
+        return out, None
+
+    init_weights = _init_head_
+
+
+class ASPPv2HyperHead(nn.Module):
+    """DeepLab-v2 ASPP to ``reduced_channels`` -> expmap -> Poincare MLR at
+    feature resolution. Returns float32 ``(logits, embed)``; when ``size``
+    is given both are resized to it."""
+
+    def __init__(self, num_classes: int, reduced_channels: int = 64,
+                 curvature: float = 1.0, dilations=(6, 12, 18, 24)):
+        super().__init__()
+        self.curvature = curvature
+        self.conv2d_list = _aspp_convs(reduced_channels, dilations)
+        self.conv_seg = HyperMLR(num_classes, reduced_channels, c=curvature)
+
+    def forward(self, feats, size: Optional[Tuple[int, int]] = None):
+        x = feats["out"]
+        y = _aspp_sum(self.conv2d_list, x)
+        with torch.autocast(y.device.type, enabled=False):
+            embed = hyp.expmap(_nhwc(y.float()), c=self.curvature)
+            out = self.conv_seg(embed)
+            if size is not None:
+                out = resize_bilinear(out, size)
+                embed = resize_bilinear(embed, size)
+        return out, embed
+
+    init_weights = _init_head_
+
+
+class SeparableASPPHead(ASPPDecoder):
+    """DeepLab-v3+ Euclidean head. With ``reduced_channels`` 512 and no HFR
+    it takes the upstream ``old_decoder`` layout: channel Dropout2d and
+    the 1x1 class conv appended to ``decoder`` (``decoder.2``,
+    ``decoder.3``); otherwise an optional 1x1 ``conv_reduce``, optional
+    HFR (float32), element-wise Dropout and ``cls_conv``. Returns
+    channel-last ``(logits, decoder_out)``: logits upsampled to ``size``
+    when given, ``decoder_out`` the features the classifier reads (after
+    reduce and HFR), at feature resolution."""
+
+    def __init__(self, num_classes: int, reduced_channels: int = 512,
+                 hfr: bool = False, freeze_bn: bool = False):
+        super().__init__(freeze_bn=freeze_bn)
+        self.old_decoder = reduced_channels == 512 and not hfr
+        if self.old_decoder:
+            self.decoder.append(nn.Dropout2d(0.1))
+            self.decoder.append(nn.Conv2d(512, num_classes, 1, bias=True))
+            self.dropout = self.decoder[2]
+            return
+        self.conv_reduce = (nn.Conv2d(512, reduced_channels, 1, bias=True)
+                            if reduced_channels != 512 else None)
+        self.wn_mlp = make_wn_mlp(reduced_channels) if hfr else None
+        self.dropout = nn.Dropout(0.1)
+        self.cls_conv = nn.Conv2d(reduced_channels, num_classes, 1,
+                                  bias=True)
+
+    def forward(self, feats, size: Optional[Tuple[int, int]] = None):
+        y = super().forward(feats)
+        if self.old_decoder:
+            decoder_out = y
+            out = self.decoder[3](self.dropout(y))
+        else:
+            if self.conv_reduce is not None:
+                y = self.conv_reduce(y)
+            if self.wn_mlp is not None:
+                with torch.autocast(y.device.type, enabled=False):
+                    y = hfr_norm(y.float(), self.wn_mlp)
+            decoder_out = y
+            out = self.cls_conv(self.dropout(y))
+        out = _nhwc(out)
+        if size is not None:
+            out = resize_bilinear(out, size)
+        return out, _nhwc(decoder_out)
+
+    init_weights = _init_head_

@@ -13,6 +13,12 @@ checkpoint names:
   live BN scale/bias + mean/var    -> weight/bias + running_mean/var
   hfr/bn                           -> wn_mlp.1
   mlr/p_mlr, mlr/a_mlr             -> conv_seg.P_MLR, conv_seg.A_MLR
+  aspp_<i> (DeepLab-v2 ASPP)       -> conv2d_list.<i>
+  cls_conv (Euclidean v3+)         -> decoder.3 in the upstream
+                                      ``old_decoder`` layout (no
+                                      conv_reduce, no HFR), else cls_conv
+
+Grouped (ResNeXt) kernels (kh, kw, I/g, O) carry over like dense ones.
 """
 
 from __future__ import annotations
@@ -45,7 +51,11 @@ def _backbone_name(path: Tuple[str, ...]) -> str:
     return f"backbone.{head}"
 
 
-def _head_name(path: Tuple[str, ...]) -> str:
+def _head_name(path: Tuple[str, ...], old_decoder: bool) -> str:
+    if path[0].startswith("aspp_"):
+        return f"conv2d_list.{path[0].split('_')[1]}"
+    if path[0] == "cls_conv":
+        return "decoder.3" if old_decoder else "cls_conv"
     if path[0] == "aspp":
         blk, rest = path[1], path[2:]
         if blk == "global_branch":  # AdaptiveAvgPool2d sits at index 0
@@ -77,6 +87,9 @@ def variables_to_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
     ``state_dict`` (float32 tensors, plus ``num_batches_tracked`` = 0 for
     every live BatchNorm so ``load_state_dict(strict=True)`` holds)."""
     out: Dict[str, torch.Tensor] = {}
+    head = variables.get("params", {}).get("classifier", {})
+    old_decoder = "cls_conv" in head and not {"conv_reduce", "hfr"} & set(
+        head)
     for collection in ("params", "frozen", "batch_stats"):
         for full, value in _leaves(variables.get(collection, {})):
             module, path, leaf = full[0], full[1:-1], full[-1]
@@ -85,7 +98,7 @@ def variables_to_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
                     and path[-2] in _NORM_SCOPES):
                 path = path[:-1]
             name = (_backbone_name(path) if module == "feature_extractor"
-                    else _head_name(path))
+                    else _head_name(path, old_decoder))
             if leaf == "kernel":
                 value = (value.transpose(3, 2, 0, 1) if value.ndim == 4
                          else value.T)

@@ -85,17 +85,17 @@ class DepthwiseSeparableConv(nn.Module):
 
 
 def dilated_conv_eligible(mode: str, channels: int, stride: int,
-                          dilation: int) -> bool:
-    """Whether a bottleneck's ``conv2`` (a dense, ungrouped 3x3 with
-    padding = dilation and ``channels`` in and out) routes to kernel C
+                          dilation: int, groups: int = 1) -> bool:
+    """Whether a bottleneck's ``conv2`` (a 3x3 with padding = dilation and
+    ``channels`` in and out) routes to kernel C
     (``TPU.DENSE_CONV_MODE "pallas"``), decided once when the module is
     built from the JAX package's structural rule
-    (``halo_tpu/models/layers.py:751``): stride 1, dilation >= 2, channels
-    a multiple of 128 (which ``ops/dilated_conv.supports`` takes in both
-    dtypes). The JAX rule's W % 8 and VMEM budget are TPU limits and are
-    not carried over: the kernel takes any H and W."""
-    return (mode == "pallas" and stride == 1 and dilation >= 2
-            and channels % 128 == 0)
+    (``halo_tpu/models/layers.py:751``): ungrouped, stride 1, dilation
+    >= 2, channels a multiple of 128 (which ``ops/dilated_conv.supports``
+    takes in both dtypes). The JAX rule's W % 8 and VMEM budget are TPU
+    limits and are not carried over: the kernel takes any H and W."""
+    return (mode == "pallas" and groups == 1 and stride == 1
+            and dilation >= 2 and channels % 128 == 0)
 
 
 class DilatedConv3x3(nn.Conv2d):

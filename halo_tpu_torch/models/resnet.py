@@ -1,25 +1,29 @@
-"""Dilated ResNet backbones (output stride 8) in PyTorch.
+"""Dilated ResNet and ResNeXt backbones (output stride 8) in PyTorch.
 
 Port of ``halo_tpu/models/resnet.py``: torchvision-style Bottleneck ResNet
 with ``replace_stride_with_dilation=(False, True, True)``, returning the
 ``{'low': layer1, 'out': layer4}`` feature pyramid. Parameter names are
 torchvision's (``layer3.7.conv2.weight``, ``layer1.0.downsample.0``), so an
-ImageNet checkpoint's keys line up.
+ImageNet checkpoint's keys line up. ResNeXt's grouped 3x3 convs stay
+``nn.Conv2d`` (cuDNN): kernel C takes ungrouped convs only.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .layers import (DilatedConv3x3, dilated_conv_eligible, init_conv_,
                      make_norm, reset_norms_)
 
 
 class Bottleneck(nn.Module):
-    """1x1 reduce -> 3x3 (stride/dilation) -> 1x1 expand, residual add.
+    """1x1 reduce -> 3x3 (stride/dilation, ``groups``) -> 1x1 expand,
+    residual add; the inner width is ``planes * base_width / 64 * groups``.
 
     ``dense_conv_mode`` "pallas" builds an eligible 3x3 as a
     ``DilatedConv3x3`` (kernel C); any other mode keeps ``nn.Conv2d``."""
@@ -27,20 +31,23 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 dilation: int = 1, has_downsample: bool = False,
-                 freeze_bn: bool = False, dense_conv_mode: str = "conv"):
+                 dilation: int = 1, groups: int = 1, base_width: int = 64,
+                 has_downsample: bool = False, freeze_bn: bool = False,
+                 dense_conv_mode: str = "conv"):
         super().__init__()
         out_ch = planes * self.expansion
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = make_norm(freeze_bn, planes)
-        if dilated_conv_eligible(dense_conv_mode, planes, stride, dilation):
-            self.conv2 = DilatedConv3x3(planes, planes, dilation)
+        width = int(planes * (base_width / 64.0)) * groups
+        self.conv1 = nn.Conv2d(inplanes, width, 1, bias=False)
+        self.bn1 = make_norm(freeze_bn, width)
+        if dilated_conv_eligible(dense_conv_mode, width, stride, dilation,
+                                 groups):
+            self.conv2 = DilatedConv3x3(width, width, dilation)
         else:
-            self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride,
+            self.conv2 = nn.Conv2d(width, width, 3, stride=stride,
                                    padding=dilation, dilation=dilation,
-                                   bias=False)
-        self.bn2 = make_norm(freeze_bn, planes)
-        self.conv3 = nn.Conv2d(planes, out_ch, 1, bias=False)
+                                   groups=groups, bias=False)
+        self.bn2 = make_norm(freeze_bn, width)
+        self.conv3 = nn.Conv2d(width, out_ch, 1, bias=False)
         self.bn3 = make_norm(freeze_bn, out_ch)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = None
@@ -57,18 +64,48 @@ class Bottleneck(nn.Module):
         return self.relu(y + identity)
 
 
+@contextlib.contextmanager
+def _keep_running_stats(module: nn.Module):
+    """Restore every live BatchNorm's running buffers of ``module`` on the
+    way out, so the recompute of a checkpointed block leaves them as the
+    forward left them (JAX's functional remat never updates them twice)."""
+    saved = [(buf, buf.clone()) for mod in module.modules()
+             if isinstance(mod, nn.modules.batchnorm._BatchNorm)
+             for buf in (mod.running_mean, mod.running_var,
+                         mod.num_batches_tracked) if buf is not None]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for buf, value in saved:
+                buf.copy_(value)
+
+
+def _remat(block: nn.Module, x):
+    """``block(x)`` with its activations recomputed in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant, RNG state preserved)."""
+    return checkpoint(block, x, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          _keep_running_stats(block)))
+
+
 class ResNetFeatures(nn.Module):
     """ResNet trunk returning ``{'low', 'out'}``.
 
     Dilation bookkeeping follows torchvision ``_make_layer``: when a stage
     dilates, its first block keeps the previous dilation with stride 1 and
-    the later blocks use the multiplied dilation.
+    the later blocks use the multiplied dilation. ``remat``
+    (``TPU.REMAT``) recomputes each block's activations in the backward
+    pass when gradients are on.
     """
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 23, 3),
                  replace_stride_with_dilation=(False, True, True),
-                 freeze_bn: bool = False, dense_conv_mode: str = "conv"):
+                 groups: int = 1, base_width: int = 64,
+                 freeze_bn: bool = False, dense_conv_mode: str = "conv",
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = make_norm(freeze_bn, 64)
         self.relu = nn.ReLU(inplace=True)
@@ -87,6 +124,7 @@ class ResNetFeatures(nn.Module):
                 layer.append(Bottleneck(
                     inplanes, planes, stride=stride if first else 1,
                     dilation=previous_dilation if first else dilation,
+                    groups=groups, base_width=base_width,
                     has_downsample=first and (
                         stride != 1 or inplanes != planes * 4),
                     freeze_bn=freeze_bn, dense_conv_mode=dense_conv_mode))
@@ -95,9 +133,15 @@ class ResNetFeatures(nn.Module):
 
     def forward(self, x):
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
-        low = self.layer1(x)
-        out = self.layer4(self.layer3(self.layer2(low)))
-        return {"low": low, "out": out}
+        feats = {}
+        for stage in range(1, 5):
+            for block in getattr(self, f"layer{stage}"):
+                x = (_remat(block, x) if self.remat
+                     and torch.is_grad_enabled() else block(x))
+            if stage == 1:
+                feats["low"] = x
+        feats["out"] = x
+        return feats
 
     def init_weights(self, generator: torch.Generator):
         """Kaiming-normal fan_out convs and identity norms, as the JAX
@@ -123,22 +167,26 @@ class FeatureExtractor(nn.Module):
         self.backbone.init_weights(generator)
 
 
-_STAGE_SIZES = {
-    "resnettiny": (1, 1, 1, 1),  # test/debug-scale arch
-    "resnet101": (3, 4, 23, 3),
+# name: (stage_sizes, groups, width_per_group)
+ARCHS = {
+    "resnettiny": ((1, 1, 1, 1), 1, 64),  # test/debug-scale arch
+    "resnet50": ((3, 4, 6, 3), 1, 64),
+    "resnet101": ((3, 4, 23, 3), 1, 64),
+    "resnet152": ((3, 8, 36, 3), 1, 64),
+    "resnext50_32x4d": ((3, 4, 6, 3), 32, 4),
+    "resnext101_32x8d": ((3, 4, 23, 3), 32, 8),
 }
 
 
 def resnet_feature_extractor(backbone_name: str, freeze_bn: bool = False,
-                             dense_conv_mode: str = "conv"
-                             ) -> FeatureExtractor:
+                             dense_conv_mode: str = "conv",
+                             remat: bool = False) -> FeatureExtractor:
     """The trunk under ``feature_extractor.backbone``; ``dense_conv_mode``
     is ``TPU.DENSE_CONV_MODE`` ("pallas" routes the eligible dilated 3x3
-    convs to kernel C)."""
-    if backbone_name not in _STAGE_SIZES:
-        raise NotImplementedError(
-            f"Backbone {backbone_name!r} is not ported yet (ROADMAP.md "
-            "Queue 1 item 12); the port has resnet101 and resnettiny.")
+    convs to kernel C), ``remat`` is ``TPU.REMAT``."""
+    if backbone_name not in ARCHS:
+        raise NotImplementedError(f"Unsupported backbone: {backbone_name}.")
+    sizes, groups, width = ARCHS[backbone_name]
     return FeatureExtractor(ResNetFeatures(
-        stage_sizes=_STAGE_SIZES[backbone_name], freeze_bn=freeze_bn,
-        dense_conv_mode=dense_conv_mode))
+        stage_sizes=sizes, groups=groups, base_width=width,
+        freeze_bn=freeze_bn, dense_conv_mode=dense_conv_mode, remat=remat))

@@ -50,11 +50,43 @@ def expmap(u, c=1.0, dim=-1, eps=BALL_EPS):
     return project(expmap0(u, c=c, dim=dim), c=c, dim=dim, eps=eps)
 
 
+def logmap0(y, c=1.0, dim=-1):
+    """Logarithm map at the origin: artanh(sqrt(c)|y|) y / (sqrt(c)|y|)."""
+    sqrt_c = math.sqrt(c)
+    norm = _safe_norm(y, dim=dim)
+    return artanh(sqrt_c * norm) * y / (sqrt_c * norm)
+
+
 def dist0(x, c=1.0, dim=-1, keepdim=False):
     """Poincare distance to the origin: 2/sqrt(c) artanh(sqrt(c)|x|)."""
     sqrt_c = math.sqrt(c)
     norm = _safe_norm(x, dim=dim, keepdim=keepdim)
     return 2.0 / sqrt_c * artanh(sqrt_c * norm)
+
+
+def mobius_add(x, y, c=1.0, dim=-1):
+    """Mobius addition x (+)_c y on the Poincare ball."""
+    x2 = torch.sum(x * x, dim=dim, keepdim=True)
+    y2 = torch.sum(y * y, dim=dim, keepdim=True)
+    xy = torch.sum(x * y, dim=dim, keepdim=True)
+    num = (1 + 2 * c * xy + c * y2) * x + (1 - c * x2) * y
+    denom = 1 + 2 * c * xy + c * c * x2 * y2
+    return num / torch.clamp(denom, min=_MIN_NORM)
+
+
+def dist(x, y, c=1.0, dim=-1, keepdim=False):
+    """Poincare distance: 2/sqrt(c) artanh(sqrt(c)|(-x) (+) y|)."""
+    sqrt_c = math.sqrt(c)
+    diff_norm = _safe_norm(mobius_add(-x, y, c=c, dim=dim), dim=dim,
+                           keepdim=keepdim)
+    return 2.0 / sqrt_c * artanh(sqrt_c * diff_norm)
+
+
+def cosine_distance(x, y, dim=-1):
+    """2 - 2 cos(x, y)."""
+    xn = x / _safe_norm(x, dim=dim)
+    yn = y / _safe_norm(y, dim=dim)
+    return 2.0 - 2.0 * torch.sum(xn * yn, dim=dim)
 
 
 def hyper_mlr_logits(x, p_mlr, a_mlr, c=1.0):
@@ -100,3 +132,23 @@ def hyper_mlr_logits(x, p_mlr, a_mlr, c=1.0):
     lamb_px = 2.0 / torch.clamp(1 - cc * mobaddnormprojected, min=eps)
     sineterm = sqrt_c * mobdota * lamb_px
     return (2.0 / sqrt_c) * a_norm * torch.asinh(sineterm)
+
+
+def embedding_metrics(x, y, c=1.0, dim=-1):
+    """Euclidean and hyperbolic comparison metrics of two embedding
+    batches (an analysis utility, off the training path): 'mse',
+    'cosine_dist', 'radius_x'/'radius_y' (ball norms after expmap),
+    'ang_e' (degrees between the mapped embeddings) and 'poincare_dist'."""
+    mse = torch.mean((x - y) ** 2)
+    cos = cosine_distance(x, y, dim=dim)
+    x_h = expmap(x, c=c, dim=dim)
+    y_h = expmap(y, c=c, dim=dim)
+    radius_x = _safe_norm(x_h, dim=dim, keepdim=False)
+    radius_y = _safe_norm(y_h, dim=dim, keepdim=False)
+    xn = x_h / radius_x.unsqueeze(dim)
+    yn = y_h / radius_y.unsqueeze(dim)
+    cosang = torch.clamp(torch.sum(xn * yn, dim=dim), -1.0, 1.0)
+    ang_e = torch.arccos(cosang) * (180.0 / math.pi)
+    return {"mse": mse, "cosine_dist": cos, "radius_x": radius_x,
+            "radius_y": radius_y, "ang_e": ang_e,
+            "poincare_dist": dist(x_h, y_h, c=c, dim=dim)}

@@ -1,4 +1,5 @@
-"""Bilinear resize with align_corners=True, as two banded contractions.
+"""Bilinear resize with align_corners=True, as two banded contractions, and
+nearest-neighbour resize.
 
 Port of ``halo_tpu/ops/resize.py``: the resize is ``M_h @ X @ M_w^T`` with
 the exact align-corners interpolation matrices. Large outputs contract
@@ -103,3 +104,19 @@ def resize_bilinear(x, out_hw, dtype=None):
     y = _contract_h(y, out_h, in_h, cdtype)
     y = _contract_w(y, out_w, in_w, cdtype)
     return y.to(x.dtype) if dtype is None else y
+
+
+def resize_nearest(x, out_hw):
+    """Nearest-neighbour resize of (..., H, W, C) tensors (labels, masks)
+    with cv2.INTER_NEAREST's source index floor(i * in / out)."""
+    out_h, out_w = int(out_hw[0]), int(out_hw[1])
+    in_h, in_w = x.shape[-3], x.shape[-2]
+    if (in_h, in_w) == (out_h, out_w):
+        return x
+    rows = np.minimum((np.arange(out_h) * in_h / out_h).astype(np.int64),
+                      in_h - 1)
+    cols = np.minimum((np.arange(out_w) * in_w / out_w).astype(np.int64),
+                      in_w - 1)
+    rows = torch.from_numpy(rows).to(x.device)
+    cols = torch.from_numpy(cols).to(x.device)
+    return x.index_select(-3, rows).index_select(-2, cols)

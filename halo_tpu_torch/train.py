@@ -5,8 +5,10 @@
 runs the ``cfg.PROTOCOL`` learner (``source``, ``source_free``,
 ``source_target`` or ``fully_sup``) on the CUDA device and raises without
 one. ``main(argv, device="cpu")`` runs it on the CPU in-process (the tests
-do). Pretrained ImageNet weights are not loaded yet: pass
-``MODEL.WEIGHTS ""``, or a ``resume`` checkpoint that holds the trunk.
+do). ``MODEL.WEIGHTS`` names the ImageNet trunk (a local file, or a URL
+already in the torch hub cache; ``""`` starts from the seeded random
+init); ``resume`` then loads each module its checkpoint holds (the port's
+``.ckpt`` or the JAX package's msgpack).
 """
 
 from __future__ import annotations

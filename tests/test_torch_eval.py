@@ -225,18 +225,32 @@ def test_quant_eval_raises(mini_root, tmp_path):
         TestLearner(cfg, device="cpu")
 
 
-def test_default_weights_need_the_trunk_from_resume(mini_root, tmp_path):
-    """The recipe's default ``MODEL.WEIGHTS`` (an ImageNet trunk) is not
-    loaded by the port; a ``resume`` checkpoint holding the trunk replaces
-    it whole, so the test entry runs; without one the learner raises."""
+def test_default_weights_need_the_trunk_from_resume(mini_root, tmp_path,
+                                                   monkeypatch):
+    """The recipe's default ``MODEL.WEIGHTS`` (an ImageNet trunk's URL) is
+    loaded from the torch hub cache, never downloaded: not cached, the
+    learner raises, ``resume`` or not; cached, the trunk loads, and a
+    ``resume`` checkpoint holding the trunk then replaces it whole."""
+    from tests.test_torch_checkpoints import torchvision_trunk
+    monkeypatch.setenv("TORCH_HOME", str(tmp_path / "torch_home"))
     argv = _argv(mini_root, tmp_path, "w", resume="")
     argv = argv[:argv.index("MODEL.WEIGHTS")] + argv[
         argv.index("MODEL.WEIGHTS") + 2:]
     _, cfg = parse_args(argv)
-    assert cfg.MODEL.WEIGHTS
-    with pytest.raises(NotImplementedError, match="MODEL.WEIGHTS"):
-        TestLearner(cfg, device="cpu")
+    assert cfg.MODEL.WEIGHTS.startswith("https://")
     ckpt = _checkpoint(19, str(tmp_path / "model.ckpt"))
+    for extra in ([], ["resume", ckpt]):
+        _, cfg = parse_args(argv + extra)
+        with pytest.raises(RuntimeError, match="torch hub cache"):
+            TestLearner(cfg, device="cpu")
+    cache = tmp_path / "torch_home" / "hub" / "checkpoints"
+    cache.mkdir(parents=True)
+    trunk = torchvision_trunk(
+        str(cache / cfg.MODEL.WEIGHTS.rsplit("/", 1)[-1]))
+    _, cfg = parse_args(argv)
+    learner = TestLearner(cfg, device="cpu")
+    got = learner.model.feature_extractor.backbone.state_dict()
+    assert all(torch.equal(got[k], trunk[k]) for k in got)
     _, cfg = parse_args(argv + ["resume", ckpt])
     learner = TestLearner(cfg, device="cpu")
     want = torch.load(ckpt, weights_only=False)["state_dict"]

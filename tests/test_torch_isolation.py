@@ -36,8 +36,12 @@ def test_no_jax_imports(path):
             f"{path.relative_to(REPO)}:{node.lineno} imports {roots}")
 
 
-# Modules of the protocols and test slice that must be among those walked.
+# Modules of the slices so far that must be among those walked.
 SLICE_MODULES = {"halo_tpu_torch.test", "halo_tpu_torch.train",
+                 "halo_tpu_torch.models.pretrained",
+                 "halo_tpu_torch.models.build",
+                 "halo_tpu_torch.models.classifier",
+                 "halo_tpu_torch.ops.prng",
                  "halo_tpu_torch.engine.learners",
                  "halo_tpu_torch.engine.state", "halo_tpu_torch.engine.steps",
                  "halo_tpu_torch.data.datasets",

@@ -117,11 +117,17 @@ def test_forward_matches_jax():
 
 
 def test_build_rejects_unported_models():
+    """SegFormer heads and MiT trunks are the next slice (ROADMAP); a name
+    the JAX package does not build either is refused as it refuses it."""
     cfg = get_default_cfg()
-    cfg.MODEL.NAME = "deeplabv2_resnet101"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for name in ("segformer_mit_b5", "deeplabv3plus_mit_b2",
+                 "segformer_resnet101"):
+        cfg.MODEL.NAME = name
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_segmentor(cfg, device="cpu")
+    cfg.MODEL.NAME = "deeplabv3plus_resnet18"
+    with pytest.raises(NotImplementedError, match="Unsupported backbone"):
         build_segmentor(cfg, device="cpu")
-    cfg.MODEL.NAME = "deeplabv3plus_resnet101"
-    cfg.MODEL.HYPER = False
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg.MODEL.NAME = "pspnet_resnettiny"
+    with pytest.raises(NotImplementedError, match="Unsupported classifier"):
         build_segmentor(cfg, device="cpu")
