@@ -22,7 +22,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
              256 ch d=2 float32), after one small launch synchronised at
              once: bf16 within one bf16 step beyond 1e-5 of max|out|, f32
              within 1e-5 of max|out|; times kernel (fwd and dx), plain
-             version, F.conv2d (cuDNN) and the dk path (wgrad_taps).
+             version, F.conv2d (cuDNN) and its dgrad, and the dk path
+             (wgrad_taps) beside cuDNN's wgrad, with the bound of each.
   5. slice   the acquisition round of configs/gtav/source_target.yaml
              (DeepLab-v3+ R101, hyperbolic head with HFR, 640x1280 input,
              entropy x radius, 1% a round) from a seeded random init over a
@@ -74,6 +75,26 @@ Phases, each of which fails the run (non-zero exit) on any error:
              (also with TPU.REMAT), _resnet152 and _resnext101_32x8d at
              2x640x1280, kernel-C launches by the eligibility rule (8, 25,
              38, 0 convs; a rematerialised block's twice forward).
+  9. acdc    the Cityscapes -> ACDC recipes at full width (segformer_mitb4,
+             hyperbolic head, 64 reduced channels, no HFR, 1280x640
+             inputs), over a synthetic Cityscapes source tree and an ACDC
+             tree at 1920x1080 (fog, night, rain, snow; 2 train frames each
+             with shared basenames, 2 val frames), MODEL.WEIGHTS an
+             NVlabs-layout MiT-B4 .pth written from --seed: (1)
+             train.main on configs/acdc/source_target.yaml, round 1 at
+             step 0 (2304 picks an image, masks and indicators under the
+             nested stems; launches A 2, B 9 an image, C 0), 3 steps,
+             validation on 2 images; kernel A bit-exact (and timed) and
+             kernel B within 1e-6 on each 128-row block of the first
+             image's real 1080x1920 maps, the ragged 56-row block
+             included; the SDPA kernels the attention runs; (2)
+             halo_tpu_torch.test.main on configs/acdc/test.yaml with the
+             run's last.ckpt and TEST.SAVE_EMBED (one kernel-B f32 launch
+             a batch, held against the plain dist0); (3) forward and
+             backward of segformer_mitb4 at 2x640x1280, with and without
+             TPU.REMAT: the median of 3 steps, and the device's busy time
+             in a fourth under torch.profiler. Every earlier phase runs at
+             its full depth.
 
 Prints the kernels JSON line, the card's name and power limit
 (nvidia-smi), and as the last line
@@ -97,7 +118,8 @@ REPO = Path(__file__).resolve().parent
 DEVICE = "cuda"
 CONFIG = REPO / "configs" / "gtav" / "source_target.yaml"
 TRAIN_STEPS = 8  # train steps of the train phase; ms/step is over 3-8
-TRUNK_INPUT = (640, 1280)  # phase families (h): the target crop
+TRUNK_INPUT = (640, 1280)  # phases families (h), acdc (3): the target crop
+ACDC_SIZE = (1080, 1920)  # phase acdc: ACDC's native (H, W)
 # phase families (h): (trunk, TPU.REMAT, kernel-C convs under the rule)
 TRUNKS = (("resnet50", False, 8), ("resnet101", False, 25),
           ("resnet101", True, 25), ("resnet152", False, 38),
@@ -369,16 +391,26 @@ def phase_conv(torch, gen, report):
                 torch, lambda i: dc.dilated_conv3x3_plain(x, wt, d), 10)
             lib = cuda_ms(torch, lambda i: F.conv2d(
                 x, wt_cl, padding=d, dilation=d), 50)
+            lib_dx = cuda_ms(torch, lambda i: torch.nn.grad.conv2d_input(
+                x.shape, wt_cl, g, padding=d, dilation=d), 50)
             dk = cuda_ms(torch, lambda i: dc.wgrad_taps(x, g, d), 20)
+            lib_dk = cuda_ms(torch, lambda i: torch.nn.grad.conv2d_weight(
+                x, wt.shape, g, padding=d, dilation=d), 20)
         flops = 2 * 2 * 90 * 160 * 9 * c * c
         nbytes = (2 * 2 * 90 * 160 * c + 9 * c * c) * x.element_size()
         rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
         b_ms, b_by = bound_ms(nbytes, flops, rate)
+        # dk reads x and the cotangent once and writes the 9 taps
+        dk_ms, dk_by = bound_ms((2 * 2 * 2 * 90 * 160 * c + 9 * c * c)
+                                * x.element_size(), flops, rate)
         print(f"conv {label} (2, {c}, 90, 160): kernel fwd {ms:.4f} ms, dx "
               f"{ms_dx:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s fwd), plain "
               f"{plain:.4f} ms, F.conv2d (cuDNN, channels_last) {lib:.4f} "
-              f"ms, bound {b_ms:.4f} ms ({b_by}); dk (wgrad_taps: pad, "
-              f"9 slab copies, 9 torch.mm) {dk:.4f} ms", flush=True)
+              f"ms, cuDNN dgrad (conv2d_input) {lib_dx:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}); dk (wgrad_taps: pad, 9 slab copies, "
+              f"9 torch.mm) {dk:.4f} ms, cuDNN wgrad (conv2d_weight) "
+              f"{lib_dk:.4f} ms, dk bound {dk_ms:.4f} ms ({dk_by})",
+              flush=True)
         rows[label] = (ms, plain, b_ms, b_by, lib)
     ms, plain, b_ms, b_by, lib = rows["256ch d=2 bfloat16"]
     report["dilated_conv3x3"] = {
@@ -1483,6 +1515,505 @@ def phase_families(torch, args, report):
             release(torch)
 
 
+def write_acdc(root: Path, seed: int, frames: int = 2, val: int = 2):
+    """A synthetic ACDC tree at the set's native 1920x1080 (blocks of 8x8
+    pixels): ``frames`` train frames in each of the four conditions, their
+    basenames shared across the conditions (as ACDC's fog and night
+    share them), and ``val`` val frames of distinct names; writes
+    ``acdc_train_list.txt`` and ``acdc_val_list.txt``."""
+    import numpy as np
+    from PIL import Image
+    from halo_tpu_torch.data.datasets import ID_TO_TRAINID_19
+
+    rng = np.random.default_rng(seed)
+    ids = np.array(list(ID_TO_TRAINID_19) + [0], np.uint8)
+    h, w = ACDC_SIZE
+    lists = {"train": [], "val": []}
+    jobs = [("train", cond, "GOPR0000", f"GOPR0000_frame_{i:06d}")
+            for cond in ("fog", "night", "rain", "snow")
+            for i in range(frames)]
+    jobs += [("val", ("fog", "night", "rain", "snow")[i % 4],
+              f"GOPR01{i:02d}", f"GOPR01{i:02d}_frame_000000")
+             for i in range(val)]
+    for split, cond, seq, frame in jobs:
+        img_p = (root / "acdc" / "rgb_anon" / cond / split / seq
+                 / f"{frame}_rgb_anon.png")
+        lab_p = (root / "acdc" / "gt" / cond / split / seq
+                 / f"{frame}_gt_labelIds.png")
+        img_p.parent.mkdir(parents=True, exist_ok=True)
+        lab_p.parent.mkdir(parents=True, exist_ok=True)
+        img = rng.integers(0, 256, (h // 8, w // 8, 3), np.uint8)
+        lab = rng.choice(ids, (h // 8, w // 8))
+        Image.fromarray(img.repeat(8, 0).repeat(8, 1)).save(img_p)
+        Image.fromarray(lab.repeat(8, 0).repeat(8, 1)).save(lab_p)
+        lists[split].append(f"{cond}/{seq}/{frame}_rgb_anon.png")
+    for split, names in lists.items():
+        (root / f"acdc_{split}_list.txt").write_text("\n".join(names) + "\n")
+
+
+def write_mit_trunk(torch, path: Path, arch: str, seed: int):
+    """A seeded NVlabs-layout MiT ``state_dict`` of ``arch`` (with the
+    ImageNet ``head``) at ``path``: LeCun-scaled kernels, the residual
+    branches' output projections (``attn.proj``, ``mlp.fc2``) scaled by
+    0.1 so the residual stream stays bounded over the blocks, LayerNorm
+    scales near 1 and small biases. Returns it."""
+    from halo_tpu_torch.models.segformer import (MIT_ARCHS,
+                                                 MixVisionTransformer)
+
+    with torch.device("meta"):
+        keys = MixVisionTransformer(**MIT_ARCHS[arch]).state_dict()
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, v in keys.items():
+        shape = tuple(v.shape)
+        if len(shape) >= 2:
+            std = 1.0 / math.sqrt(math.prod(shape[1:]))
+            if k.endswith(("attn.proj.weight", "mlp.fc2.weight")):
+                std *= 0.1
+            sd[k] = torch.randn(shape, generator=gen) * std
+        elif "norm" in k and k.endswith("weight"):
+            sd[k] = torch.rand(shape, generator=gen) * 0.2 + 0.9
+        else:
+            sd[k] = torch.randn(shape, generator=gen) * 0.02
+    dims = MIT_ARCHS[arch]["embed_dims"]
+    sd["head.weight"] = torch.zeros(1000, dims[-1])
+    sd["head.bias"] = torch.zeros(1000)
+    torch.save(sd, path)
+    return sd
+
+
+def profiled(torch, fn) -> tuple:
+    """(device events, wall ms) of one call of ``fn`` under torch.profiler;
+    no events when the trace fails (it is a report, not a check)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        return [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA], wall
+    except Exception as exc:
+        print(f"profiler: {type(exc).__name__}: {exc}", flush=True)
+        return [], 0.0
+
+
+def sdpa_kernels(torch, attn, x) -> str:
+    """The device kernels one call of ``attn`` (an EfficientAttention)
+    on ``x`` launches for its scaled_dot_product_attention."""
+    with torch.no_grad(), torch.autocast(DEVICE, dtype=torch.bfloat16):
+        attn(x)
+        events, _ = profiled(torch, lambda: attn(x))
+    names = sorted({e.key for e in events if any(
+        s in e.key.lower() for s in ("flash", "fmha", "attention", "sdpa"))})
+    return "; ".join(n[:100] for n in names) or "not measured"
+
+
+def device_busy_ms(torch, fn) -> str:
+    """The device time of the kernels and copies of one call of ``fn``
+    beside its wall time, both under torch.profiler."""
+    events, wall = profiled(torch, fn)
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    if busy <= 0:
+        return "not measured"
+    return (f"{busy:.1f} ms of {wall:.1f} ms wall under the profiler (idle "
+            f"share {1 - busy / wall:.3f})")
+
+
+def phase_acdc(torch, args, report):
+    """The Cityscapes -> ACDC recipes at full width (SegFormer-B4,
+    hyperbolic head, 64 reduced channels, no HFR, 1280x640 inputs): round
+    1, 3 steps and validation through train.main; the test entry; one
+    forward and backward with and without TPU.REMAT. Launch counters are
+    zeroed before each run and read at once after it."""
+    import statistics
+
+    from halo_tpu_torch import test as test_entry
+    from halo_tpu_torch import train
+    from halo_tpu_torch.active import cuda_radius, cuda_select
+    from halo_tpu_torch.active.scoring import fused_upsample_region_score
+    from halo_tpu_torch.config import get_default_cfg
+    from halo_tpu_torch.data import mask_cache
+    from halo_tpu_torch.data.build import build_active_loader
+    from halo_tpu_torch.data.masks import load_indicator, load_mask_png
+    from halo_tpu_torch.engine import learners, make_forward
+    from halo_tpu_torch.engine.state import load_state_dict_file
+    from halo_tpu_torch.losses import cross_entropy_loss
+    from halo_tpu_torch.models import build_segmentor
+    from halo_tpu_torch.ops import dilated_conv as dc
+    from halo_tpu_torch.ops.resize import resize_bilinear
+
+    card = card_line()
+    steps = 3
+    recipe = REPO / "configs" / "acdc" / "source_target.yaml"
+
+    def counts():
+        return {"fwd": dc.launches_fwd, "dx": dc.launches_dx,
+                "radius_map": cuda_radius.launches,
+                "greedy_picks": cuda_select.launches}
+
+    def zero_counts():
+        dc.launches_fwd = dc.launches_dx = dc.layout_copies = 0
+        cuda_radius.launches = cuda_select.launches = 0
+
+    def expect(label, got, want):
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, want {want}")
+        print(f"{label}: launches {got}", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        data = root / "datasets"
+        t0 = time.perf_counter()
+        write_cityscapes(data, args.images, args.seed)
+        write_acdc(data, args.seed)
+        weights = root / "mit_b4.pth"
+        trunk_file = write_mit_trunk(torch, weights, "mitb4", args.seed)
+        print(f"acdc setup (synthetic Cityscapes source and ACDC trees, "
+              f"NVlabs-layout MiT-B4 file): {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        h_nat, w_nat = ACDC_SIZE
+
+        def argv(path, name, *extra):
+            return ["-cfg", str(path), "MODEL.WEIGHTS", str(weights),
+                    "resume", "", "SOLVER.NUM_ITER", str(steps),
+                    "TPU.ACTIVE_BATCH", "4", "TPU.DATASET_DIR", str(data),
+                    "OUTPUT_DIR", str(root / "out"), "NAME", name,
+                    "SEED", str(args.seed), *extra]
+
+        # (1) train.main: round 1 at step 0, 3 steps, validation.
+        rounds = []
+        round_fn = learners.region_selection
+
+        def kept_round(*a, **k):
+            stats = round_fn(*a, **k)
+            rounds.append(stats)
+            return stats
+
+        learners.region_selection = kept_round
+        mask_cache.clear()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        stages = {}
+        t0 = time.perf_counter()
+        try:
+            learner = train.main(argv(recipe, "acdc", "TPU.VAL_INTERVAL",
+                                      str(steps)),
+                                 device=DEVICE, stage_seconds=stages)
+            torch.cuda.synchronize()
+        finally:
+            learners.region_selection = round_fn
+        wall = time.perf_counter() - t0
+        got = counts()
+        cfg = learner.cfg
+        entries = learner.active_loader.dataset.data_list
+        n_img = len(entries)
+        batches = math.ceil(n_img / 4)
+        blocks = math.ceil(h_nat / 128)   # kernel B's 128-row blocks
+        expect("acdc train", got, {"fwd": 0, "dx": 0,
+                                   "radius_map": n_img * blocks,
+                                   "greedy_picks": batches})
+        picks = math.ceil(h_nat * w_nat * cfg.ACTIVE.BUDGET
+                          / len(cfg.ACTIVE.SELECT_ITER) / 9)
+        if (len(rounds) != 1 or rounds[0]["images"] != n_img
+                or rounds[0]["picked"] != n_img * picks):
+            raise AssertionError(f"acdc round 1: {rounds}, want {n_img} "
+                                 f"images x {picks} picks")
+        stems = set()
+        for entry in entries:
+            mask = load_mask_png(entry["label_mask"])
+            ind = load_indicator(entry["indicator"])
+            if (mask.shape != (h_nat, w_nat)
+                    or ind["selected"].shape != (h_nat, w_nat)
+                    or (ind["selected"] & ~ind["active"]).any()
+                    or ((mask != 255) & ~ind["selected"]).any()
+                    or not (mask != 255).any()):
+                raise AssertionError(f"acdc round 1: bad mask/indicator "
+                                     f"for {entry['name']}")
+            stems.add(Path(entry["label_mask"]).relative_to(
+                Path(cfg.SAVE_DIR) / "gtMask" / "train").parts[0])
+        if stems != {"fog", "night", "rain", "snow"}:
+            raise AssertionError(f"acdc masks not under the conditions: "
+                                 f"{stems}")
+        hist = learner.history
+        if len(hist) != steps or not all(
+                math.isfinite(v) for rec in hist for k, v in rec.items()
+                if k.startswith(("loss", "negative"))):
+            raise AssertionError(f"acdc steps: {hist}")
+        # Every parameter was updated (a finite, nonzero momentum
+        # buffer); at the warmup LR (1e-5) the updates of LayerNorm scales
+        # near 1 can stay below float32's rounding, so not all values move.
+        before = load_state_dict_file(str(Path(cfg.SAVE_DIR)
+                                          / "model_before_round_1.ckpt"))
+        after = learner.model.state_dict()
+        params = [(n, p) for n, p in learner.model.named_parameters()
+                  if p.requires_grad]
+        state = learner.optimizer.state
+        idle = [n for n, p in params
+                if "momentum_buffer" not in state[p]
+                or not bool(torch.isfinite(state[p]["momentum_buffer"]).all())
+                or not bool(state[p]["momentum_buffer"].any())]
+        still = [n for n, p in params
+                 if torch.equal(before[n], after[n].cpu())]
+        n_params = len(params)
+        prefix = "feature_extractor.backbone."
+        loaded = {k[len(prefix):]: v for k, v in before.items()
+                  if k.startswith(prefix)}
+        if idle or loaded.keys() != trunk_file.keys() - {
+                "head.weight", "head.bias"} or not all(
+                torch.equal(v, trunk_file[k]) for k, v in loaded.items()):
+            raise AssertionError(f"acdc: parameters without an update "
+                                 f"{idle[:5]}, or the trunk is not "
+                                 "MODEL.WEIGHTS' file")
+        if not (math.isfinite(learner.best_miou) and learner.best_miou >= 0):
+            raise AssertionError(f"acdc validation mIoU {learner.best_miou}")
+        step_ms = [(a + b) * 1e3 for a, b in learner.step_seconds]
+        load_ms = [a * 1e3 for a, _ in learner.step_seconds]
+        print(f"acdc train ({cfg.MODEL.NAME}, HYPER {cfg.MODEL.HYPER}, HFR "
+              f"{cfg.MODEL.HFR}): round 1 {rounds[0]}, {picks} picks an "
+              f"image, masks under {sorted(stems)}; ms/step median of steps "
+              f"2-{steps} {statistics.median(step_ms[1:]):.1f} (loader wait "
+              f"{statistics.median(load_ms[1:]):.1f}); each step "
+              f"{json.dumps([round(v, 1) for v in step_ms])}; stages s "
+              + json.dumps({k: round(v, 3) for k, v in stages.items()})
+              + f"; all {n_params} parameters updated, "
+              f"{n_params - len(still)} of them moved (unmoved: "
+              f"{sorted({n.rsplit('.', 2)[-2] for n in still})}); the "
+              f"trunk was the file's ({len(loaded)} tensors); validation "
+              f"mIoU "
+              f"{learner.best_miou:.4f} over 2 images; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; run "
+              f"{wall:.1f} s; {card}", flush=True)
+        print("acdc losses: " + json.dumps(
+            [{k: round(v, 5) for k, v in rec.items()
+              if k.startswith(("loss", "negative"))} for rec in hist]),
+            flush=True)
+
+        # Kernels A and B on the first image's real maps.
+        loader = build_active_loader(cfg, num_workers=0)
+        batch = next(iter(loader))
+        model = learner.model.eval()
+        forward = make_forward(model)
+        with torch.no_grad():
+            logits, embed = forward(torch.as_tensor(batch["img"],
+                                                    device=DEVICE))
+            if not (bool(torch.isfinite(logits).all())
+                    and bool((embed.norm(dim=-1) < 1).all())):
+                raise AssertionError("acdc forward not finite / in ball")
+            score, _, _ = fused_upsample_region_score(
+                logits[0], embed[0], (h_nat, w_nat),
+                score_dtype=torch.bfloat16)
+            kw = dict(num_picks=picks, mask_radius=cfg.ACTIVE.MASK_RADIUS_K)
+            a_got = cuda_select.greedy_picks(score, **kw)
+            t0 = time.perf_counter()
+            a_want = cuda_select.greedy_picks_reference(score, **kw)
+            torch.cuda.synchronize()
+            a_plain = (time.perf_counter() - t0) * 1e3
+            native = resize_bilinear(embed[0].float(), (h_nat, w_nat))
+            native = native.to(torch.bfloat16)
+        same_picks(torch, a_got, a_want, "real ACDC score map")
+        a_ms = cuda_ms(torch, lambda i: cuda_select.greedy_picks(score, **kw),
+                       5, warmup=1)
+        maps = score.expand(4, -1, -1).contiguous()
+        a4_ms = cuda_ms(torch, lambda i: cuda_select.greedy_picks(maps, **kw),
+                        5, warmup=1)
+        a_bound, a_by = bound_ms(
+            h_nat * w_nat * 4 + picks * 2 * 4 + 4,
+            h_nat * w_nat + picks * (2 * kw["mask_radius"] + 1) * h_nat)
+        rel, t_diff, share = 0.0, 0.0, []
+        b_rows = {}
+        for r0 in range(0, h_nat, 128):
+            blk = native[r0:r0 + 128].contiguous()
+            got_b = cuda_radius.radius_map(blk)
+            want_b = cuda_radius.radius_map_reference(blk)
+            torch.cuda.synchronize()
+            t_diff = max(t_diff, float((torch.tanh(got_b / 2) - torch.tanh(
+                want_b / 2)).abs().max()))
+            inner = torch.tanh(want_b / 2) < 0.9
+            share.append(float(inner.float().mean()))
+            if bool(inner.any()):
+                rel = max(rel, max_rel(torch, got_b[inner], want_b[inner]))
+            b_rows[blk.shape[0]] = blk
+        if rel > 1e-6 or t_diff > 1e-6:
+            raise AssertionError(f"acdc kernel B off its plain version on "
+                                 f"the real embedding: rel {rel}, |t| "
+                                 f"{t_diff}")
+        timing = []
+        for rows, blk in sorted(b_rows.items()):
+            n = rows * w_nat
+            ms = cuda_ms(torch, lambda i: cuda_radius.radius_map(blk), 64)
+            plain = cuda_ms(torch, lambda i: cuda_radius.radius_map_reference(
+                blk), 16)
+            lib = cuda_ms(torch, lambda i: torch.linalg.vector_norm(
+                blk, dim=-1, dtype=torch.float32), 64)
+            b_ms, b_by = bound_ms(n * 64 * 2 + n * 4, n * 64 * 2)
+            timing.append(f"({rows}, {w_nat}, 64) bf16: kernel {ms:.4f} ms, "
+                          f"plain {plain:.4f} ms, vector_norm {lib:.4f} ms, "
+                          f"bound {b_ms:.4f} ms ({b_by})")
+        print(f"acdc kernel A on the first image's real {h_nat}x{w_nat} "
+              f"score map: bit-exact with its plain version, {picks} picks "
+              f"(m = {kw['mask_radius']}) {a_ms:.3f} ms "
+              f"({a_ms / picks * 1e3:.3f} us/pick), 4 maps in one launch "
+              f"{a4_ms:.3f} ms, plain {a_plain:.1f} ms, bound {a_bound:.4f} "
+              f"ms ({a_by}); kernel B on its {len(share)} native 128-row "
+              f"blocks (the last {h_nat - 128 * (len(share) - 1)} rows): "
+              f"{statistics.mean(share):.4f} of pixels at t < 0.9, max rel "
+              f"diff {rel:.3e}, max |t| diff {t_diff:.3e}; "
+              + "; ".join(timing) + f"; {card}", flush=True)
+        print("acdc SDPA kernels at stage 1 (2, 160, 320, 64) bf16: "
+              + sdpa_kernels(torch, model.feature_extractor.backbone
+                             .block1[0].attn,
+                             torch.randn((2, 160, 320, 64), device=DEVICE)),
+              flush=True)
+        ckpt = str(Path(cfg.SAVE_DIR) / "last.ckpt")
+        del learner, model, before, after, loaded, trunk_file, score, maps
+        del native, b_rows, logits, embed
+        release(torch)
+
+        # (2) The test entry on acdc_val.
+        make_rich = learners.make_rich_eval_step
+        kept, call_ms = [], []
+
+        def timed_rich(cfg, model):
+            step = make_rich(cfg, model)
+
+            def run(img, label, flip=True):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(img, label, flip=flip)
+                torch.cuda.synchronize()
+                call_ms.append((time.perf_counter() - t0) * 1e3)
+                if not kept:
+                    kept.append(out)
+                return out
+
+            return run
+
+        learners.make_rich_eval_step = timed_rich
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            result = test_entry.main(
+                argv(REPO / "configs" / "acdc" / "test.yaml", "acdc_test",
+                     "resume", ckpt, "TEST.SAVE_EMBED", "True"),
+                device=DEVICE)
+            torch.cuda.synchronize()
+        finally:
+            learners.make_rich_eval_step = make_rich
+        wall = time.perf_counter() - t0
+        got = counts()
+        n_val = len(call_ms)
+        expect("acdc test", got, {"fwd": 0, "dx": 0, "radius_map": n_val,
+                                  "greedy_picks": 0})
+        if n_val != 2 or not math.isfinite(result["mIoU"]):
+            raise AssertionError(f"acdc test: {result}, {n_val} batches")
+        arts = sorted((root / "out" / "acdc_test" / "embed").glob("*.pt"))
+        w_in, h_in = cfg.INPUT.INPUT_SIZE_TEST
+        want = {"label": ("int32", (1, h_nat, w_nat)),
+                "pred": ("int32", (1, h_nat, w_nat)),
+                "output": ("float32", (1, h_nat, w_nat, 19)),
+                "embed": ("float32", (1, h_in // 4, w_in // 4, 64))}
+        for path in arts:
+            blob = torch.load(path, weights_only=False)
+            shapes = {k: (str(v.dtype).split(".")[-1], tuple(v.shape))
+                      for k, v in blob.items()}
+            if shapes != want:
+                raise AssertionError(f"acdc test {path.name}: {shapes}")
+        if len(arts) != 2:
+            raise AssertionError(f"acdc test artifacts {arts}")
+        r = kept[0]
+        size = tuple(r["radius"].shape[1:3])
+        plain = resize_bilinear(cuda_radius.radius_map_reference(
+            r["embed"])[..., None], size)[..., 0]
+        t_diff = float((torch.tanh(r["radius"] / 2)
+                        - torch.tanh(plain / 2)).abs().max())
+        inner = torch.tanh(plain / 2) < 0.9
+        rel = (max_rel(torch, r["radius"][inner], plain[inner])
+               if bool(inner.any()) else 0.0)
+        if rel > 1e-6 or t_diff > 1e-6:
+            raise AssertionError(f"acdc test: rich radius off the plain "
+                                 f"dist0: rel {rel}, |t| diff {t_diff}")
+        emb = r["embed"]
+        ms = cuda_ms(torch, lambda i: cuda_radius.radius_map(emb), 64)
+        plain_ms = cuda_ms(
+            torch, lambda i: cuda_radius.radius_map_reference(emb), 16)
+        lib = cuda_ms(torch, lambda i: torch.linalg.vector_norm(
+            emb, dim=-1), 64)
+        n = emb.numel() // emb.shape[-1]
+        b_ms, b_by = bound_ms(emb.numel() * 4 + n * 4, emb.numel() * 2)
+        print(f"acdc test: mIoU {result['mIoU']:.4f} over {n_val} images; "
+              f"rich eval ms/img {json.dumps([round(v, 2) for v in call_ms])}"
+              f" (entry {wall:.1f} s with model build and resume); peak "
+              f"device memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+              f"artifacts {[p.name for p in arts]} with the JAX keys, "
+              f"dtypes and shapes; rich radius vs plain dist0: "
+              f"{float(inner.float().mean()):.4f} of pixels at t < 0.9 (max "
+              f"rel diff {rel:.3e}), max |t| diff {t_diff:.3e}; kernel B f32 "
+              f"on the {tuple(emb.shape)} embedding {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, vector_norm {lib:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}); {card}", flush=True)
+        del kept, r, emb, plain
+        release(torch)
+
+    # (3) One forward and backward of segformer_mitb4 at 2x640x1280.
+    h, w = TRUNK_INPUT
+    gen = torch.Generator(device=DEVICE).manual_seed(args.seed)
+    for remat in (False, True):
+        cfg = get_default_cfg()
+        cfg.set_new_allowed(True)
+        cfg.merge_from_file(str(recipe))
+        cfg.TPU.REMAT = remat
+        label = "acdc segformer_mitb4" + (" TPU.REMAT" if remat else "")
+        model = build_segmentor(
+            cfg, device=DEVICE,
+            generator=torch.Generator().manual_seed(args.seed)).train()
+        img = torch.randn((2, h, w, 3), generator=gen, device=DEVICE)
+        target = torch.randint(0, 19, (2, h, w), generator=gen,
+                               device=DEVICE)
+        forward = make_forward(model)
+
+        def step():
+            model.zero_grad(set_to_none=True)
+            logits, _ = forward(img)
+            loss = cross_entropy_loss(logits.float(), target)
+            loss.backward()
+            return loss
+
+        step()   # first call: cuDNN plans, allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            loss = step().detach()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(times)
+        expect(label, counts(), {"fwd": 0, "dx": 0, "radius_map": 0,
+                                 "greedy_picks": 0})
+        busy = device_busy_ms(torch, step)
+        grads = [p.grad for p in model.parameters() if p.requires_grad]
+        if not (math.isfinite(float(loss)) and all(
+                g is not None and bool(torch.isfinite(g).all())
+                for g in grads)):
+            raise AssertionError(f"{label}: loss {float(loss)} or a "
+                                 "gradient not finite")
+        print(f"{label}: forward + backward at 2x{h}x{w} median {ms:.1f} "
+              f"ms of {json.dumps([round(v, 1) for v in times])}, loss "
+              f"{float(loss):.4f}; device busy in one profiled step "
+              f"{busy}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+              f"{card}", flush=True)
+        del model, img, target, grads, loss
+        release(torch)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1528,6 +2059,7 @@ def main() -> int:
     phase_train(torch, args, report)
     phase_protocols(torch, args, report)
     phase_families(torch, args, report)
+    phase_acdc(torch, args, report)
     print(json.dumps({"kernels": [report["greedy_picks"],
                                   report["radius_map"],
                                   report["dilated_conv3x3"]]}), flush=True)

@@ -14,7 +14,11 @@ batch; the round waits for every write and raises on any failure.
 image copy to the device; each image's score map is
 ``jax.random.uniform(PRNGKey(seed), (H, W))`` bit for bit (``ops/prng``),
 its seed a fixed mix of (``SEED``, round, image index in the sweep) as
-the JAX package mixes it, so the arm's masks are the JAX package's.
+the JAX package mixes it, so the arm's masks are the JAX package's. The
+index is ``batch_no * TPU.ACTIVE_BATCH + b``, as in the JAX sweep, whose
+loader groups batches by native size and pads each size's last batch at
+its end; the port's sweep loader (``data.build.build_active_loader``)
+forms the same batches without the padding.
 
 The port runs eagerly, so it needs no compiled-program cache and no padding
 of the last batch.
@@ -117,10 +121,11 @@ def region_selection(cfg, model, active_loader, round_number: int,
         clock["t"] = now
 
     stats = {"images": 0, "picked": 0, "labeled_px": 0}
+    sweep_batch = int(cfg.TPU.ACTIVE_BATCH)
     io_pool = ThreadPoolExecutor(max_workers=4)
     io_futures = []
     try:
-        for batch in active_loader:
+        for batch_no, batch in enumerate(active_loader):
             lap("load")
             n_img = len(batch["size"])
             if not random_score:
@@ -150,7 +155,7 @@ def region_selection(cfg, model, active_loader, round_number: int,
             with torch.no_grad():
                 scores = [
                     prng.uniform(random_arm_seed(
-                        cfg.SEED, round_number, stats["images"] + b),
+                        cfg.SEED, round_number, batch_no * sweep_batch + b),
                         sizes[b], device=dev) if random_score
                     else fused_upsample_region_score(
                         logits[b], embed[b] if needs_embed else None,

@@ -98,7 +98,8 @@ _C.PROTOCOL = "source_target"
 # ---------------------------------------------------------------------------
 _C.TPU = CN()
 # In the PyTorch port, TPU.PALLAS_SELECTION, STENCIL_TRAIN, CONV_WGRAD,
-# FUSED_UPSAMPLE and the QUANT_* keys have no effect: greedy selection
+# FUSED_UPSAMPLE and the QUANT_* keys have no effect (QUANT_EVAL and
+# QUANT_SWEEP True raise: int8 is not ported): greedy selection
 # always runs the CUDA kernel on a GPU (active/cuda_select.py), the weight
 # gradient of a cuDNN conv is cuDNN's, and the acquisition round always
 # folds the upsample into the score. DENSE_CONV_MODE "pallas" routes the
@@ -162,13 +163,13 @@ _C.TPU.CONV_WGRAD = "gemm"
 # sweeps batch=1, core/train_learners.py:282-289; any value yields
 # identical masks). Every image in one dispatch must share a native
 # resolution; for mixed-resolution active sets the active loader groups
-# batches by size automatically at any ACTIVE_BATCH (data/build.py
-# group_by_size, tested by test_engine.py::test_mixed_resolution_fit),
+# batches by size automatically at any ACTIVE_BATCH (in the port
+# data/build.py:SizeGroupedBatches, in the same order as the JAX loader),
 # so no manual fallback to 1 is needed.
 # JAX package: the post-training int8 (W8A8) eval path for the stride-1
 # ungrouped convs, after a calibration pass; it changes numerics
 # (per-tensor activation / per-channel weight symmetric quantization). Not
-# ported yet; no effect in the port.
+# ported yet: True raises in the port's TestLearner.
 _C.TPU.QUANT_EVAL = False
 # Calibration batches fed through the model to set the PTQ activation
 # absmax (TestLearner._calibrate_quant) before a QUANT_EVAL eval. Batches
@@ -181,7 +182,8 @@ _C.TPU.QUANT_RECALIBRATE = False
 # JAX package: run the acquisition sweep's eval forward through the int8
 # W8A8 path, with a quantized twin of the model recalibrated from the
 # round's own target images before every round; the selection may change.
-# Training keeps the float path. Not ported yet; no effect in the port.
+# Training keeps the float path. Not ported yet: True raises in the port's
+# active learners.
 _C.TPU.QUANT_SWEEP = False
 # In-training validation cadence in steps (the reference hardcodes
 # Lightning's val_check_interval=500, train.py:135); 0 disables.

@@ -155,11 +155,38 @@ def build_test_loader(cfg, num_workers=None) -> DataLoader:
                       num_workers=workers, collate_fn=numpy_collate)
 
 
+class SizeGroupedBatches:
+    """The sweep's batches of ``batch_size`` indices in the JAX loader's
+    order (``group_by_size``): with more than one image a batch, the
+    indices are bucketed by native size (buckets in order of first
+    appearance, file order within one) and each bucket is cut into
+    batches, its last one possibly short; with one a batch, file order.
+    Batch ``n``'s image ``b`` is then image ``n * batch_size + b`` of the
+    JAX package's sweep, whose short batches are padded at their end."""
+
+    def __init__(self, dataset, batch_size: int):
+        buckets: Dict[tuple, List[int]] = {}
+        for i in range(len(dataset)):
+            key = tuple(dataset.native_size(i)) if batch_size > 1 else ()
+            buckets.setdefault(key, []).append(i)
+        self.batches = [bucket[i:i + batch_size]
+                        for bucket in buckets.values()
+                        for i in range(0, len(bucket), batch_size)]
+
+    def __iter__(self):
+        return iter(self.batches)
+
+    def __len__(self):
+        return len(self.batches)
+
+
 def build_active_loader(cfg, num_workers=None) -> DataLoader:
     """The acquisition sweep's loader: ``TPU.ACTIVE_BATCH`` images a
-    batch, in file order, numpy batches."""
+    batch, grouped by native size (``SizeGroupedBatches``), numpy
+    batches."""
     workers = (int(cfg.TPU.LOADER_WORKERS) if num_workers is None
                else num_workers)
-    return DataLoader(build_dataset(cfg, "active", epochwise=True),
-                      batch_size=int(cfg.TPU.ACTIVE_BATCH), shuffle=False,
-                      num_workers=workers, collate_fn=numpy_collate)
+    dataset = build_dataset(cfg, "active", epochwise=True)
+    return DataLoader(dataset, batch_sampler=SizeGroupedBatches(
+        dataset, int(cfg.TPU.ACTIVE_BATCH)), num_workers=workers,
+        collate_fn=numpy_collate)

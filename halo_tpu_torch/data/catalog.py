@@ -1,11 +1,12 @@
-"""Dataset catalog (the GTAV, SYNTHIA and Cityscapes part of
-``halo_tpu/data/catalog.py``) and active-mask initialisation."""
+"""Dataset catalog (copy of ``halo_tpu/data/catalog.py``: GTAV, SYNTHIA,
+Cityscapes and ACDC) and active-mask initialisation."""
 
 from __future__ import annotations
 
 import os
 from concurrent.futures import ThreadPoolExecutor
 
+from .acdc import ACDCDataSet
 from .datasets import CityscapesDataSet, GTAVDataSet, SynthiaDataSet
 from .masks import init_image_mask
 
@@ -20,6 +21,9 @@ class DatasetCatalog:
                              "data_list": "cityscapes_train_list.txt"},
         "cityscapes_val": {"data_dir": "cityscapes",
                            "data_list": "cityscapes_val_list.txt"},
+        "acdc_train": {"data_dir": "acdc",
+                       "data_list": "acdc_train_list.txt"},
+        "acdc_val": {"data_dir": "acdc", "data_list": "acdc_val_list.txt"},
     }
 
     @staticmethod
@@ -35,12 +39,10 @@ class DatasetCatalog:
     def get(name, mode, num_classes, max_iters=None, transform=None,
             cfg=None, seed=0, is_source=False):
         """The dataset ``name`` in ``mode`` ('train', 'active', 'val').
-        A Cityscapes set used as the source reads full labels and no mask
-        store."""
+        A Cityscapes or ACDC set used as the source reads full labels and
+        no mask store."""
         if name not in DatasetCatalog.DATASETS:
-            raise NotImplementedError(
-                f"Dataset {name!r} is not ported yet (ROADMAP.md Queue 1 "
-                "item 12); the port reads gtav, synthia and cityscapes.")
+            raise RuntimeError(f"Dataset not available: {name}")
         attrs = DatasetCatalog.DATASETS[name]
         data_dir = DatasetCatalog.dataset_dir(cfg)
         root = os.path.join(data_dir, attrs["data_dir"])
@@ -51,7 +53,8 @@ class DatasetCatalog:
             return source(root, data_list, max_iters=max_iters,
                           num_classes=num_classes, split=mode,
                           transform=transform, seed=seed)
-        return CityscapesDataSet(
+        target = ACDCDataSet if name.startswith("acdc") else CityscapesDataSet
+        return target(
             root, data_list, save_dir=cfg.SAVE_DIR, max_iters=max_iters,
             num_classes=num_classes, split=mode, transform=transform,
             load_mask=not is_source)

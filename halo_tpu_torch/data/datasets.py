@@ -1,6 +1,7 @@
 """Datasets: the GTAV and SYNTHIA source sets and the Cityscapes target
 set with the active-mask protocol (copy of
-``halo_tpu/data/datasets.py:56-322``; ACDC is not ported yet).
+``halo_tpu/data/datasets.py:56-322``; ACDC, a Cityscapes target set in
+another layout, is in ``acdc.py``).
 
 Samples are dicts of numpy arrays and strings, channel-last. A train-mode
 Cityscapes sample carries its label and its active mask (read from the
@@ -218,6 +219,13 @@ class CityscapesDataSet:
 
     def __len__(self):
         return len(self.data_list)
+
+    def native_size(self, index) -> tuple:
+        """Native (H, W) of sample ``index`` from its image file's header
+        (no pixel decode): the sweep loader groups its batches by it."""
+        with Image.open(self.data_list[index]["img"]) as im:
+            w, h = im.size
+        return h, w
 
     def __getitem__(self, index, rng=None):
         files = self.data_list[index]

@@ -304,6 +304,10 @@ class _ActiveMixin:
     """Acquisition rounds at ``ACTIVE.SELECT_ITER``."""
 
     def _init_active(self):
+        if bool(self.cfg.TPU.QUANT_SWEEP):
+            raise NotImplementedError(
+                "TPU.QUANT_SWEEP: the int8 W8A8 acquisition sweep is not "
+                "ported yet (ROADMAP.md Queue 1 item 13)")
         self.active_loader = build_active_loader(self.cfg)
         print(">>>>>>>>>>>>>>>> Init Mask >>>>>>>>>>>>>>>>", flush=True)
         DatasetCatalog.init_mask(self.cfg)

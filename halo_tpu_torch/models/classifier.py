@@ -61,7 +61,7 @@ def _init_head_(head: nn.Module, generator: torch.Generator):
     reset_norms_(head)
 
 
-def _aspp_convs(out_channels: int, dilations, in_channels: int = 2048):
+def _aspp_convs(out_channels: int, dilations, in_channels: int):
     """The DeepLab-v2 ASPP's dilated 3x3 convs with bias."""
     return nn.ModuleList(
         nn.Conv2d(in_channels, out_channels, 3, padding=d, dilation=d,
@@ -79,11 +79,14 @@ def _aspp_sum(convs, x):
 
 class ASPPDecoder(nn.Module):
     """ASPP branches + global branch + bottleneck + low-level shortcut +
-    two separable decoder convs -> 512-ch map at the stride-4 resolution."""
+    two separable decoder convs -> 512-ch map at the resolution of the
+    trunk's ``low`` map; ``in_channels`` and ``low_channels`` are the
+    widths of the trunk's ``out`` and ``low`` maps."""
 
-    def __init__(self, freeze_bn: bool = False):
+    def __init__(self, freeze_bn: bool = False, in_channels: int = 2048,
+                 low_channels: int = 256):
         super().__init__()
-        cin, low, out, short = 2048, 256, 512, 48
+        cin, low, out, short = in_channels, low_channels, 512, 48
         self.parallel_branches = nn.ModuleList(
             [ConvBNReLU(cin, out, 1, freeze_bn=freeze_bn)]
             + [DepthwiseSeparableConv(cin, out, dilation=d,
@@ -160,8 +163,9 @@ class SeparableASPPHyperHead(ASPPDecoder):
 
     def __init__(self, num_classes: int, reduced_channels: int = 64,
                  curvature: float = 1.0, hfr: bool = True,
-                 freeze_bn: bool = False):
-        super().__init__(freeze_bn=freeze_bn)
+                 freeze_bn: bool = False, in_channels: int = 2048,
+                 low_channels: int = 256):
+        super().__init__(freeze_bn, in_channels, low_channels)
         self.curvature = curvature
         self.dropout = nn.Dropout2d(0.1)
         self.conv_reduce = nn.Conv2d(512, reduced_channels, 1, bias=True)
@@ -188,9 +192,10 @@ class ASPPv2Head(nn.Module):
     24) straight to the class logits. Returns ``(logits, None)``, logits
     upsampled to ``size`` when given."""
 
-    def __init__(self, num_classes: int, dilations=(6, 12, 18, 24)):
+    def __init__(self, num_classes: int, dilations=(6, 12, 18, 24),
+                 in_channels: int = 2048):
         super().__init__()
-        self.conv2d_list = _aspp_convs(num_classes, dilations)
+        self.conv2d_list = _aspp_convs(num_classes, dilations, in_channels)
 
     def forward(self, feats, size: Optional[Tuple[int, int]] = None):
         x = feats["out"]
@@ -208,10 +213,12 @@ class ASPPv2HyperHead(nn.Module):
     is given both are resized to it."""
 
     def __init__(self, num_classes: int, reduced_channels: int = 64,
-                 curvature: float = 1.0, dilations=(6, 12, 18, 24)):
+                 curvature: float = 1.0, dilations=(6, 12, 18, 24),
+                 in_channels: int = 2048):
         super().__init__()
         self.curvature = curvature
-        self.conv2d_list = _aspp_convs(reduced_channels, dilations)
+        self.conv2d_list = _aspp_convs(reduced_channels, dilations,
+                                       in_channels)
         self.conv_seg = HyperMLR(num_classes, reduced_channels, c=curvature)
 
     def forward(self, feats, size: Optional[Tuple[int, int]] = None):
@@ -239,8 +246,9 @@ class SeparableASPPHead(ASPPDecoder):
     reduce and HFR), at feature resolution."""
 
     def __init__(self, num_classes: int, reduced_channels: int = 512,
-                 hfr: bool = False, freeze_bn: bool = False):
-        super().__init__(freeze_bn=freeze_bn)
+                 hfr: bool = False, freeze_bn: bool = False,
+                 in_channels: int = 2048, low_channels: int = 256):
+        super().__init__(freeze_bn, in_channels, low_channels)
         self.old_decoder = reduced_channels == 512 and not hfr
         if self.old_decoder:
             self.decoder.append(nn.Dropout2d(0.1))

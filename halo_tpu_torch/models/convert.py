@@ -19,6 +19,21 @@ checkpoint names:
                                       conv_reduce, no HFR), else cls_conv
 
 Grouped (ResNeXt) kernels (kh, kw, I/g, O) carry over like dense ones.
+A MiT trunk (``segformer.py``) takes the upstream NVlabs names, the
+inverse of ``_mit_torch_to_flax`` in ``port_torch.py``:
+
+  patch_embed<s>/{proj,norm}       -> backbone.patch_embed<s>.{proj,norm}
+  block<s>_<i>/{norm1,norm2}       -> backbone.block<s>.<i>.{norm1,norm2}
+  block<s>_<i>/attn/{q,sr,proj}    -> ....attn.{q,sr,proj}
+  block<s>_<i>/attn/sr_norm        -> ....attn.norm
+  block<s>_<i>/attn/k + attn/v     -> ....attn.kv (k's rows, then v's)
+  block<s>_<i>/ffn/{fc1,fc2}       -> ....mlp.{fc1,fc2}
+  block<s>_<i>/ffn/dwconv          -> ....mlp.dwconv.dwconv
+  norm<s>                          -> backbone.norm<s>
+  LayerNorm scale                  -> weight
+
+The SegFormer heads keep the JAX names (``linear_c<s>``, ``fuse_conv``,
+``fuse_bn``, ``cls``, ``conv_reduce``); ``fuse_bn`` is a live BN.
 """
 
 from __future__ import annotations
@@ -49,6 +64,22 @@ def _backbone_name(path: Tuple[str, ...]) -> str:
                "downsample_bn": "downsample.1"}.get(rest[0], rest[0])
         return f"backbone.layer{stage}.{block}.{mod}"
     return f"backbone.{head}"
+
+
+# MiT block parts whose upstream names differ from the JAX path
+_MIT_PARTS = {("attn", "sr_norm"): "attn.norm",
+              ("attn", "k"): "attn.kv", ("attn", "v"): "attn.kv",
+              ("ffn", "fc1"): "mlp.fc1", ("ffn", "fc2"): "mlp.fc2",
+              ("ffn", "dwconv"): "mlp.dwconv.dwconv"}
+
+
+def _mit_name(path: Tuple[str, ...]) -> str:
+    head, rest = path[0], path[1:]
+    if head.startswith("block"):
+        stage, block = head[len("block"):].split("_")
+        part = _MIT_PARTS.get(tuple(rest), ".".join(rest))
+        return f"backbone.block{stage}.{block}.{part}"
+    return "backbone." + ".".join(path)
 
 
 def _head_name(path: Tuple[str, ...], old_decoder: bool) -> str:
@@ -87,18 +118,26 @@ def variables_to_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
     ``state_dict`` (float32 tensors, plus ``num_batches_tracked`` = 0 for
     every live BatchNorm so ``load_state_dict(strict=True)`` holds)."""
     out: Dict[str, torch.Tensor] = {}
-    head = variables.get("params", {}).get("classifier", {})
+    params = variables.get("params", {})
+    head = params.get("classifier", {})
     old_decoder = "cls_conv" in head and not {"conv_reduce", "hfr"} & set(
         head)
+    mit = "patch_embed1" in params.get("feature_extractor", {})
+    kv: Dict[str, Dict[str, np.ndarray]] = {}
     for collection in ("params", "frozen", "batch_stats"):
         for full, value in _leaves(variables.get(collection, {})):
             module, path, leaf = full[0], full[1:-1], full[-1]
-            live_bn = collection == "batch_stats" or leaf == "scale"
+            trunk = module == "feature_extractor"
+            # a MiT trunk's only norms are LayerNorms
+            live_bn = collection == "batch_stats" or (
+                leaf == "scale" and not (trunk and mit))
             if (len(path) >= 2 and path[-1] == "bn"
                     and path[-2] in _NORM_SCOPES):
                 path = path[:-1]
-            name = (_backbone_name(path) if module == "feature_extractor"
-                    else _head_name(path, old_decoder))
+            if trunk:
+                name = _mit_name(path) if mit else _backbone_name(path)
+            else:
+                name = _head_name(path, old_decoder)
             if leaf == "kernel":
                 value = (value.transpose(3, 2, 0, 1) if value.ndim == 4
                          else value.T)
@@ -108,7 +147,13 @@ def variables_to_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
             elif leaf in _BN_LEAF:
                 leaf = _BN_LEAF[leaf]
             key = f"{module}.{name}.{leaf}"
-            out[key] = torch.from_numpy(np.array(value, dtype=np.float32))
+            value = np.array(value, dtype=np.float32)
+            if name.endswith("attn.kv"):
+                kv.setdefault(key, {})[path[-1]] = value
+                continue
+            out[key] = torch.from_numpy(value)
             if live_bn:
                 out[f"{module}.{name}.num_batches_tracked"] = torch.tensor(0)
+    for key, parts in kv.items():
+        out[key] = torch.from_numpy(np.concatenate([parts["k"], parts["v"]]))
     return out

@@ -3,12 +3,16 @@
 Counterpart of ``resolve_pretrained_weights``, ``load_torch_checkpoint``
 and ``load_pretrained_backbone`` in ``halo_tpu/models/port_torch.py``. The
 file is a torchvision ResNet/ResNeXt ``state_dict`` (``conv1.weight``,
-``layer3.7.conv2.weight``, ...), optionally under a ``state_dict`` key
-and a ``backbone.`` or ``feature_extractor.backbone.`` prefix. Its
-ImageNet classifier (``fc.*``) has no destination in the trunk and is
-dropped, as are BatchNorm ``num_batches_tracked`` counters. Every other
-tensor must land on the trunk, and the trunk must get every tensor it
-has: nothing is downloaded, and nothing falls back to the random init.
+``layer3.7.conv2.weight``, ...) or an NVlabs MiT one
+(``patch_embed1.proj.weight``, ``block3.5.attn.kv.weight``, ...),
+optionally under a ``state_dict`` key and a ``backbone.`` or
+``feature_extractor.backbone.`` prefix. The trunk's names are the
+upstream ones, so the tensors land by name. The ImageNet classifier
+(``fc.*`` of a ResNet, ``head.*`` of a MiT) has no destination in the
+trunk and is dropped, as are BatchNorm ``num_batches_tracked`` counters.
+Every other tensor must land on the trunk, and the trunk must get every
+tensor it has: nothing is downloaded, and nothing falls back to the
+random init.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from typing import Dict, Optional
 
 import torch
 
-_DROPPED = ("fc.",)
+_DROPPED = ("fc.", "head.")
 _PREFIXES = ("feature_extractor.backbone.", "backbone.")
 
 
@@ -85,8 +89,8 @@ def load_pretrained_backbone(model, spec: str) -> Optional[str]:
     if not found.keys() & own.keys():
         raise RuntimeError(
             f"{path}: no tensor matches the trunk — not a torchvision "
-            "ResNet/ResNeXt state_dict. Refusing to continue from the "
-            "random init.")
+            "ResNet/ResNeXt or NVlabs MiT state_dict. Refusing to continue "
+            "from the random init.")
     unexpected = sorted(found.keys() - own.keys())
     missing = sorted(own.keys() - found.keys())
     if unexpected or missing:

@@ -106,6 +106,9 @@ class ResNetFeatures(nn.Module):
                  remat: bool = False):
         super().__init__()
         self.remat = remat
+        # widths of the maps the heads read
+        self.channels = {"low": 64 * Bottleneck.expansion,
+                         "out": 512 * Bottleneck.expansion}
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = make_norm(freeze_bn, 64)
         self.relu = nn.ReLU(inplace=True)
@@ -162,6 +165,12 @@ class FeatureExtractor(nn.Module):
 
     def forward(self, x):
         return self.backbone(x)
+
+    @property
+    def channels(self):
+        """Widths of the trunk's maps, by name (``low``, ``out`` and, for
+        MiT, ``c1``..``c4``)."""
+        return self.backbone.channels
 
     def init_weights(self, generator: torch.Generator):
         self.backbone.init_weights(generator)

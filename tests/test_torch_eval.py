@@ -225,6 +225,17 @@ def test_quant_eval_raises(mini_root, tmp_path):
         TestLearner(cfg, device="cpu")
 
 
+def test_quant_sweep_raises(mini_root, tmp_path):
+    """``TPU.QUANT_SWEEP True`` (the int8 sweep) is refused by the active
+    learners until int8 is ported, never ignored."""
+    from halo_tpu_torch.engine.learners import build_learner
+    for recipe in ("gtav/source_target.yaml", "gtav/source_free.yaml"):
+        _, cfg = parse_args(_argv(mini_root, tmp_path, "q", recipe,
+                                  resume="", **{"TPU.QUANT_SWEEP": True}))
+        with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+            build_learner(cfg, device="cpu")
+
+
 def test_default_weights_need_the_trunk_from_resume(mini_root, tmp_path,
                                                    monkeypatch):
     """The recipe's default ``MODEL.WEIGHTS`` (an ImageNet trunk's URL) is

@@ -41,6 +41,8 @@ SLICE_MODULES = {"halo_tpu_torch.test", "halo_tpu_torch.train",
                  "halo_tpu_torch.models.pretrained",
                  "halo_tpu_torch.models.build",
                  "halo_tpu_torch.models.classifier",
+                 "halo_tpu_torch.models.segformer",
+                 "halo_tpu_torch.data.acdc",
                  "halo_tpu_torch.ops.prng",
                  "halo_tpu_torch.engine.learners",
                  "halo_tpu_torch.engine.state", "halo_tpu_torch.engine.steps",

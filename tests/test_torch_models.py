@@ -117,17 +117,33 @@ def test_forward_matches_jax():
 
 
 def test_build_rejects_unported_models():
-    """SegFormer heads and MiT trunks are the next slice (ROADMAP); a name
-    the JAX package does not build either is refused as it refuses it."""
+    """The port builds what the JAX package's build_segmentor builds and
+    refuses what it refuses, with its message; the one deliberate
+    difference: a SegFormer head on a ResNet trunk, which the JAX package
+    builds and fails to apply, is refused when the port builds it
+    (ValueError naming the stage maps c1..c4 it lacks)."""
+    builds = ("segformer_mitb4", "deeplabv3plus_mitb2")
+    refused = {"segformer_mit_b5": "Unsupported backbone",
+               "deeplabv3plus_resnet18": "Unsupported backbone",
+               "pspnet_resnettiny": "Unsupported classifier"}
+    for name in builds + ("segformer_resnet101",) + tuple(refused):
+        jcfg = jax_default_cfg()
+        jcfg.MODEL.NAME = name
+        if name in refused:
+            with pytest.raises(NotImplementedError, match=refused[name]):
+                jax_build(jcfg)
+        else:
+            jax_build(jcfg)
     cfg = get_default_cfg()
-    for name in ("segformer_mit_b5", "deeplabv3plus_mit_b2",
-                 "segformer_resnet101"):
+    for name in builds:
         cfg.MODEL.NAME = name
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with torch.device("meta"):
+            model = build_segmentor(cfg, device="meta")
+        assert model.feature_extractor.channels["out"] == 512
+    for name, message in refused.items():
+        cfg.MODEL.NAME = name
+        with pytest.raises(NotImplementedError, match=message):
             build_segmentor(cfg, device="cpu")
-    cfg.MODEL.NAME = "deeplabv3plus_resnet18"
-    with pytest.raises(NotImplementedError, match="Unsupported backbone"):
-        build_segmentor(cfg, device="cpu")
-    cfg.MODEL.NAME = "pspnet_resnettiny"
-    with pytest.raises(NotImplementedError, match="Unsupported classifier"):
+    cfg.MODEL.NAME = "segformer_resnet101"
+    with pytest.raises(ValueError, match="c1..c4"):
         build_segmentor(cfg, device="cpu")

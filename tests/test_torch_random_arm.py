@@ -91,3 +91,47 @@ def test_random_round_matches_jax(tmp_path):
     a = load_indicator(os.path.join(pcfg.SAVE_DIR, "gtIndicator", rel))
     b = load_indicator(os.path.join(tmp_path / "port", "gtIndicator", rel))
     assert not np.array_equal(a["selected"], b["selected"])
+
+
+def test_random_round_on_two_sizes_matches_jax(tmp_path):
+    """A target set of two native sizes (three 32x64 images, then two
+    40x72) at ``TPU.ACTIVE_BATCH`` 2: the JAX sweep batches by size and
+    pads the 32x64 bucket's last batch, so the 40x72 images are images 4
+    and 5 of its sweep; the port's masks, seeded by the same index, are
+    the JAX package's."""
+    from tests.conftest import add_mixed_size_images
+
+    root = build_mini_dataset(tmp_path / "datasets")
+    add_mixed_size_images(root)
+    cfg = tiny_cfg(root, tmp_path, "source_target")
+    cfg.ACTIVE.UNCERTAINTY = "random"
+    cfg.TPU.ACTIVE_BATCH = 2
+    cfg.SEED = 5
+    learner = build_learner(cfg)
+    want = jax_round(cfg, learner.model, learner.state,
+                     learner.active_loader, 1, mesh=learner.mesh)
+
+    pcfg = get_default_cfg()
+    pcfg.set_new_allowed(True)
+    pcfg.merge_from_other_cfg(cfg)
+    pcfg.SAVE_DIR = str(tmp_path / "port")
+    mask_cache.clear()
+    DatasetCatalog.init_mask(pcfg)
+    loader = build_active_loader(pcfg, 0)
+    assert [len(b["size"]) for b in loader] == [2, 1, 2]
+    got = region_selection(pcfg, None, loader, 1, progress=False,
+                           device="cpu")
+    assert got == want and got["images"] == 5
+
+    jfiles = _files(os.path.join(cfg.SAVE_DIR, "gtMask"))
+    pfiles = _files(os.path.join(pcfg.SAVE_DIR, "gtMask"))
+    assert jfiles.keys() == pfiles.keys() and len(jfiles) == 5
+    for rel in jfiles:
+        with open(jfiles[rel], "rb") as a, open(pfiles[rel], "rb") as b:
+            assert a.read() == b.read(), rel
+    for rel, path in _files(os.path.join(cfg.SAVE_DIR,
+                                         "gtIndicator")).items():
+        a = load_indicator(path)
+        b = load_indicator(os.path.join(pcfg.SAVE_DIR, "gtIndicator", rel))
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=rel)
