@@ -17,13 +17,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
              a batch of 4 maps in one launch (one stops early); times
              one map, the batch (us a pick) and the plain version.
   4. conv    kernel C (the dilated 3x3 conv) against its plain version,
-             forward and dx through autograd, at the train step's shapes
-             (B = 2, 90x160: 256 ch d=2, 512 ch d=2, 512 ch d=4, bf16;
-             256 ch d=2 float32), after one small launch synchronised at
-             once: bf16 within one bf16 step beyond 1e-5 of max|out|, f32
-             within 1e-5 of max|out|; times kernel (fwd and dx), plain
-             version, F.conv2d (cuDNN) and its dgrad, and the dk path
-             (wgrad_taps) beside cuDNN's wgrad, with the bound of each.
+             forward, dx and dk through autograd, at the train step's
+             shapes (B = 2, 90x160: 256 ch d=2, 512 ch d=2, 512 ch d=4,
+             bf16; 256 ch d=2 float32), after one small forward and one
+             small dk launch synchronised at once: bf16 within one bf16
+             step beyond 1e-5 of max|out| (dk: of wgrad_taps on float32
+             operands; two dk calls bit-identical), f32 within 1e-5 of
+             max|out|; times kernel (fwd, dx and, in bf16, the weight-
+             gradient kernel), plain version, F.conv2d (cuDNN), its dgrad
+             and wgrad, and wgrad_taps (the plain dk, the f32 path's dk),
+             with the bound of each.
   5. slice   the acquisition round of configs/gtav/source_target.yaml
              (DeepLab-v3+ R101, hyperbolic head with HFR, 640x1280 input,
              entropy x radius, 1% a round) from a seeded random init over a
@@ -39,15 +42,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
              trees: round 1 at step 0, 8 train steps, validation on
              2 images, checkpoints. Checks masks, finite losses, moved
              parameters and unchanged FrozenBN buffers, kernel C's
-             launches (50 forward + 50 dx a step) and A's and B's, the
-             mIoU, last.ckpt loading with strict=True, and kernel C on
-             the first step's real layer3/layer4 activations and
-             cotangents; prints ms/step (median of steps 3-8), stages and
-             peak memory, then ms/step with TPU.DENSE_CONV_MODE conv.
+             launches (50 forward + 50 dx + 50 dk a step) and A's and
+             B's, the mIoU, last.ckpt loading with strict=True, and kernel
+             C (fwd, dx, dk) on the first step's real layer3/layer4
+             activations and cotangents; prints ms/step (median of steps
+             3-8), stages and peak memory, then ms/step with
+             TPU.DENSE_CONV_MODE conv; in each mode the median of 5 steps
+             on one device-resident batch between CUDA events (no loader).
+             --profile adds kernel C's wrapper split by function.
   7. protocols  the pipeline on the same model width with
              TPU.DENSE_CONV_MODE pallas over synthetic SYNTHIA (1280x760,
              16-bit labels) and Cityscapes trees: (a) SYNTHIA source
-             pretraining, 3 steps, 16 classes; (b) source_free resumed
+             pretraining, 3 steps, 16 classes (kernel C's dk launches as
+             many as its dx in every run); (b) source_free resumed
              from (a)'s last.ckpt, round 1 at step 0, 3 steps; (c)
              halo_tpu_torch.test.main on (b)'s last.ckpt with
              TEST.SAVE_EMBED over 2 val images: mIoU*, the embed/*.pt
@@ -157,6 +164,25 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     torch.cuda.synchronize()
     times = sorted(s.elapsed_time(e) for s, e in events)
     return times[len(times) // 2]
+
+
+def kernel_ms(torch, fn, names, iters: int = 10) -> dict:
+    """Device ms a call of each kernel whose name holds one of ``names``,
+    from torch.profiler over ``iters`` calls of fn (kernel time alone)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        for name in names:
+            if name in e.key:
+                out[name] = out.get(name, 0.0) + \
+                    e.self_device_time_total / 1e3 / iters
+    return out
 
 
 def max_rel(torch, got, want) -> float:
@@ -321,23 +347,31 @@ def bf16_steps(torch, got, want) -> tuple:
             float(((diff - floor).clamp_min(0) / step).max()))
 
 
-def check_conv(torch, dc, x, wt, g, d, label) -> float:
-    """Kernel C's forward and dx against the plain version (dx through
-    autograd of each); returns the largest absolute difference. bf16: at
-    most one bf16 step apart beyond 1e-5 of max|out|; f32: within 1e-5 of
-    max|out|."""
+def check_conv(torch, dc, x, wt, g, d, label) -> dict:
+    """Kernel C's forward, dx and dk against the plain version, through
+    autograd of each. bf16: at
+    most one bf16 step apart beyond 1e-5 of max|out| (dk: of wgrad_taps on
+    float32 operands, the sums the kernel rounds once); f32: within 1e-5
+    of max|out|. Returns the largest absolute difference of each part."""
     xk = x.detach().clone().requires_grad_(True)
-    got = dc.dilated_conv3x3(xk, wt, d)
+    wk = wt.detach().clone().requires_grad_(True)
+    got = dc.dilated_conv3x3(xk, wk, d)
     got.backward(g)
     xp = x.detach().clone().requires_grad_(True)
-    want = dc.dilated_conv3x3_plain(xp, wt, d)
+    wp = wt.detach().clone().requires_grad_(True)
+    want = dc.dilated_conv3x3_plain(xp, wp, d)
     want.backward(g)
+    if x.dtype == torch.bfloat16:
+        want_dk = dc.wgrad_taps(x.float(), g.float(), d)
+    else:
+        want_dk = wp.grad
     torch.cuda.synchronize()
-    worst = 0.0
-    for part, a, e in (("fwd", got, want), ("dx", xk.grad, xp.grad)):
+    errs = {}
+    for part, a, e in (("fwd", got, want), ("dx", xk.grad, xp.grad),
+                       ("dk", wk.grad, want_dk)):
         a, e = a.detach(), e.detach()
         err = float((a.float() - e.float()).abs().max())
-        worst = max(worst, err)
+        errs[part] = err
         if x.dtype == torch.bfloat16:
             strict, floored = bf16_steps(torch, a, e)
             ok = floored <= 1.0
@@ -352,73 +386,114 @@ def check_conv(torch, dc, x, wt, g, d, label) -> float:
         if not ok:
             raise AssertionError(f"kernel C {part} off its plain version "
                                  f"at {label}: {detail}")
-    return worst
+    return errs
 
 
 def phase_conv(torch, gen, report):
     """Kernel C at the main path's shapes (B = 2, 90x160) against its plain
-    version, forward and dx; times kernel, plain version and cuDNN."""
+    version, forward, dx and dk; times kernel, plain version and cuDNN."""
     import torch.nn.functional as F
     from halo_tpu_torch.ops import dilated_conv as dc
 
     cases = [(256, 2, torch.bfloat16), (512, 2, torch.bfloat16),
              (512, 4, torch.bfloat16), (256, 2, torch.float32)]
-    # One launch, synchronised at once: a kernel that hangs or faults
-    # shows here, not in a later phase.
+    # One launch of each kernel, synchronised at once: a kernel that hangs
+    # or faults shows here, not in a later phase.
     x = torch.randn((1, 64, 8, 40), generator=gen, device=DEVICE)
     x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
     dc._conv(x, torch.zeros((64, 64, 3, 3), dtype=torch.bfloat16,
-                            device=DEVICE), 1, "fwd")
+                            device=DEVICE), 1)
     torch.cuda.synchronize()
-    print("conv: first bf16 launch ran", flush=True)
-    worst = 0.0
+    xh = dc._nhwc(x)
+    dc._wgrad(xh, xh, 1)
+    torch.cuda.synchronize()
+    print("conv: first bf16 forward and dk launches ran", flush=True)
+    worst, worst_dk = 0.0, 0.0
     rows = {}
     for c, d, dtype in cases:
         label = f"{c}ch d={d} {str(dtype).split('.')[-1]}"
+        bf16 = dtype == torch.bfloat16
         x = torch.randn((2, c, 90, 160), generator=gen, device=DEVICE)
         x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+        # channels_last, as the port's models hold their weights on CUDA
         wt = (torch.randn((c, c, 3, 3), generator=gen, device=DEVICE)
-              / math.sqrt(9 * c)).to(dtype)
+              / math.sqrt(9 * c)).to(dtype).contiguous(
+                  memory_format=torch.channels_last)
         g = torch.randn((2, c, 90, 160), generator=gen, device=DEVICE)
         g = g.to(dtype).contiguous(memory_format=torch.channels_last)
-        worst = max(worst, check_conv(torch, dc, x, wt, g, d, label))
-        wt_cl = wt.contiguous(memory_format=torch.channels_last)
-        wT = wt.flip(2, 3).transpose(0, 1)
+        errs = check_conv(torch, dc, x, wt, g, d, label)
+        worst = max(worst, errs["fwd"], errs["dx"])
+        xh, gh = dc._nhwc(x), dc._nhwc(g)
+        if bf16:
+            a, b = dc._wgrad(xh, gh, d), dc._wgrad(xh, gh, d)
+            if not torch.equal(a.view(torch.int16), b.view(torch.int16)):
+                raise AssertionError(f"dk at {label}: two calls differ")
+            worst_dk = max(worst_dk, errs["dk"])
         with torch.no_grad():
-            ms = cuda_ms(torch, lambda i: dc._conv(x, wt, d, "fwd"), 50)
-            ms_dx = cuda_ms(torch, lambda i: dc._conv(g, wT, d, "dx"), 50)
+            ms = cuda_ms(torch, lambda i: dc._conv(x, wt, d), 50)
+            ms_dx = cuda_ms(torch, lambda i: dc._launch(
+                gh, dc.repack_flipped(wt, kmajor=bf16), c, d), 50)
             plain = cuda_ms(
                 torch, lambda i: dc.dilated_conv3x3_plain(x, wt, d), 10)
             lib = cuda_ms(torch, lambda i: F.conv2d(
-                x, wt_cl, padding=d, dilation=d), 50)
-            lib_dx = cuda_ms(torch, lambda i: torch.nn.grad.conv2d_input(
-                x.shape, wt_cl, g, padding=d, dilation=d), 50)
-            dk = cuda_ms(torch, lambda i: dc.wgrad_taps(x, g, d), 20)
-            lib_dk = cuda_ms(torch, lambda i: torch.nn.grad.conv2d_weight(
-                x, wt.shape, g, padding=d, dilation=d), 20)
+                x, wt, padding=d, dilation=d), 50)
+            # cuDNN's dgrad and wgrad as autograd runs them in the model
+            # (torch.nn.grad.conv2d_input's stand-in input of stride 0
+            # would send it to a slower, non-channels-last dgrad)
+            def conv_backward(mask):
+                return torch.ops.aten.convolution_backward(
+                    g, x, wt, None, [1, 1], [d, d], [d, d], False,
+                    [0, 0], 1, mask)
+            lib_dx = cuda_ms(
+                torch, lambda i: conv_backward([True, False, False]), 50)
+            taps = cuda_ms(torch, lambda i: dc.wgrad_taps(x, g, d), 20)
+            dk = cuda_ms(torch, lambda i: dc._wgrad(xh, gh, d), 50) \
+                if bf16 else taps
+            lib_dk = cuda_ms(
+                torch, lambda i: conv_backward([False, True, False]), 20)
+        if bf16:
+            split = kernel_ms(torch, lambda: dc._wgrad(xh, gh, d),
+                              ("wgrad_bf16_kernel", "wgrad_reduce_kernel"))
+            print(f"conv {label} dk kernels (profiler, ms a call): "
+                  + json.dumps({k: round(v, 4) for k, v in split.items()}),
+                  flush=True)
         flops = 2 * 2 * 90 * 160 * 9 * c * c
         nbytes = (2 * 2 * 90 * 160 * c + 9 * c * c) * x.element_size()
-        rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+        rate = BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S
         b_ms, b_by = bound_ms(nbytes, flops, rate)
         # dk reads x and the cotangent once and writes the 9 taps
         dk_ms, dk_by = bound_ms((2 * 2 * 2 * 90 * 160 * c + 9 * c * c)
                                 * x.element_size(), flops, rate)
+        dk_what = ("dk kernel (split-K TMA + wgmma, then the ordered "
+                   f"reduction) {dk:.4f} ms ({flops / dk / 1e9:.1f} "
+                   f"TFLOP/s), wgrad_taps (pad, 9 slab copies, 9 torch.mm) "
+                   f"{taps:.4f} ms" if bf16 else
+                   f"dk (wgrad_taps: pad, 9 slab copies, 9 torch.mm) "
+                   f"{dk:.4f} ms")
         print(f"conv {label} (2, {c}, 90, 160): kernel fwd {ms:.4f} ms, dx "
               f"{ms_dx:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s fwd), plain "
               f"{plain:.4f} ms, F.conv2d (cuDNN, channels_last) {lib:.4f} "
-              f"ms, cuDNN dgrad (conv2d_input) {lib_dx:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}); dk (wgrad_taps: pad, 9 slab copies, "
-              f"9 torch.mm) {dk:.4f} ms, cuDNN wgrad (conv2d_weight) "
-              f"{lib_dk:.4f} ms, dk bound {dk_ms:.4f} ms ({dk_by})",
-              flush=True)
-        rows[label] = (ms, plain, b_ms, b_by, lib)
-    ms, plain, b_ms, b_by, lib = rows["256ch d=2 bfloat16"]
+              f"ms, cuDNN dgrad (convolution_backward) {lib_dx:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}); {dk_what}, cuDNN wgrad "
+              f"(convolution_backward) {lib_dk:.4f} ms, dk bound "
+              f"{dk_ms:.4f} ms "
+              f"({dk_by}, {dk_ms / dk:.0%} of it)", flush=True)
+        rows[label] = (ms, plain, b_ms, b_by, lib, dk, taps, dk_ms, dk_by,
+                       lib_dk)
+    ms, plain, b_ms, b_by, lib = rows["256ch d=2 bfloat16"][:5]
     report["dilated_conv3x3"] = {
         "name": "dilated_conv3x3", "route": "cuda",
         "source": "halo_tpu_torch/csrc/dilated_conv.cu",
         "replaces": "halo_tpu/ops/pallas_conv.py:150",
         "launches": 0, "max_abs_err": worst, "ms": ms, "plain_ms": plain,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+    dk, taps, dk_ms, dk_by, lib_dk = rows["256ch d=2 bfloat16"][5:]
+    report["dilated_conv3x3_wgrad"] = {
+        "name": "dilated_conv3x3_wgrad", "route": "cuda",
+        "source": "halo_tpu_torch/csrc/dilated_conv_wgrad.cu",
+        "replaces": "halo_tpu/ops/pallas_conv.py:180",
+        "launches": 0, "max_abs_err": worst_dk, "ms": dk, "plain_ms": taps,
+        "bound_ms": dk_ms, "bound_by": dk_by, "library_ms": lib_dk}
 
 
 def write_cityscapes(root: Path, n_images: int, seed: int,
@@ -484,16 +559,18 @@ def write_gtav(root: Path, n_images: int, seed: int):
     (root / "gtav_train_list.txt").write_text("\n".join(names) + "\n")
 
 
-def summarize_profile(prof, wall_s: float, path: str):
+def summarize_profile(prof, wall_s: float, path: str) -> dict:
     """Device busy time against the round's wall clock, and the kernels
-    that take it, from a torch.profiler run; the trace goes to ``path``."""
+    that take it, from a torch.profiler run; the trace goes to ``path``.
+    Returns the device ms of each kernel name."""
     from torch.autograd import DeviceType
     prof.export_chrome_trace(path)
     # device-side events only: kernels and copies (the CPU ops that launch
-    # them carry the same time again)
+    # them carry the same time again; conv_ranges' device-side ranges too)
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
+              and e.self_device_time_total > 0
+              and not e.key.startswith(RANGE_PREFIX)]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     print(f"profile: device busy {busy_ms:.1f} ms of {wall_s * 1e3:.1f} ms "
           f"wall (idle share {1 - busy_ms / (wall_s * 1e3):.3f}); trace "
@@ -501,6 +578,7 @@ def summarize_profile(prof, wall_s: float, path: str):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x "
               f"{e.key[:90]}", flush=True)
+    return {e.key: e.self_device_time_total / 1e3 for e in events}
 
 
 def phase_slice(torch, args, report):
@@ -644,18 +722,120 @@ def phase_slice(torch, args, report):
               f"max |t| diff {t_diff:.3e}", flush=True)
 
 
-def profile_steps(torch, learner, path: str, steps: int = 3):
-    """Device time of ``steps`` train steps on one fixed batch (no loader),
-    traced with torch.profiler; the trace goes next to ``path``."""
-    from torch.profiler import ProfilerActivity, profile
-    mode = learner.cfg.TPU.DENSE_CONV_MODE
-    loaders = learner.train_loaders()
-    batches = {k: learner._to_device(next(iter(v)))
-               for k, v in loaders.items()}
+# Profiler ranges that conv_ranges puts around kernel C's wrapper calls:
+# range -> the ops/dilated_conv.py functions it wraps (those that exist).
+RANGE_PREFIX = "halo/"
+CONV_RANGES = (
+    ("forward", ("_DilatedConv3x3.forward",)),
+    ("backward", ("_DilatedConv3x3.backward",)),
+    ("launch", ("_launch",)),             # the fwd and dx kernel calls
+    ("dk", ("wgrad_taps", "_wgrad")),    # the weight gradient
+    ("repack", ("repack", "repack_kmajor", "repack_flipped")),
+    ("layout", ("_nhwc",)))
+# Kernel C's own kernels, by the name the profiler gives them.
+CONV_KERNELS = ("conv_bf16_kernel", "conv_f32_kernel", "wgrad_bf16_kernel",
+                "wgrad_reduce_kernel")
+
+
+@contextlib.contextmanager
+def conv_ranges(torch):
+    """Name kernel C's wrapper calls as torch.profiler ranges (CONV_RANGES),
+    so that a trace splits a step's kernel-C time by wrapper function."""
+    from torch.profiler import record_function
+
+    from halo_tpu_torch.ops import dilated_conv as dc
+    undo = []
+    for rng, names in CONV_RANGES:
+        for name in names:
+            owner, attr = (dc._DilatedConv3x3, name.split(".")[1]) \
+                if "." in name else (dc, name)
+            fn = owner.__dict__.get(attr)
+            if fn is None:
+                continue
+            inner = fn.__func__ if isinstance(fn, staticmethod) else fn
+
+            def wrapped(*a, _inner=inner, _rng=rng, **k):
+                with record_function(RANGE_PREFIX + _rng):
+                    return _inner(*a, **k)
+            setattr(owner, attr, staticmethod(wrapped)
+                    if isinstance(fn, staticmethod) else wrapped)
+            undo.append((owner, attr, fn))
+    try:
+        yield
+    finally:
+        for owner, attr, fn in undo:
+            setattr(owner, attr, fn)
+
+
+def print_conv_ranges(prof, steps: int):
+    """Device and host ms a step of each conv_ranges range, and of kernel
+    C's own kernels. A range's device time is that of the PyTorch ops
+    inside it (copies, GEMMs, casts); the kernels launched through ctypes
+    are not attributed to it and are listed by name."""
+    from torch.autograd import DeviceType
+    ranges, own = {}, {}
+    for e in prof.key_averages():
+        dev = getattr(e, "device_time_total", None)
+        if dev is None:
+            dev = e.cuda_time_total
+        if e.device_type == DeviceType.CPU and e.key.startswith(
+                RANGE_PREFIX):
+            ranges[e.key[len(RANGE_PREFIX):]] = [
+                round(dev / 1e3 / steps, 3),
+                round(e.cpu_time_total / 1e3 / steps, 3),
+                e.count / steps]
+        elif e.device_type == DeviceType.CUDA:
+            for name in CONV_KERNELS:
+                if name in e.key:
+                    t = own.setdefault(name, [0.0, 0])
+                    t[0] += e.self_device_time_total / 1e3 / steps
+                    t[1] += e.count / steps
+    if ranges:
+        print("profile: kernel C's wrapper, a step (device ms of its "
+              "PyTorch ops / host ms / calls): " + json.dumps(ranges),
+              flush=True)
+    print("profile: kernel C's kernels, a step (device ms / launches): "
+          + json.dumps({k: [round(v[0], 3), v[1]] for k, v in own.items()}),
+          flush=True)
+
+
+def fixed_batches(learner) -> dict:
+    """One batch of each train loader, on the device."""
+    return {k: learner._to_device(next(iter(v)))
+            for k, v in learner.train_loaders().items()}
+
+
+def fixed_batch_ms(torch, learner, batches, steps: int = 5) -> list:
+    """ms of ``steps`` train steps on one device-resident batch (no
+    loader), each between its own pair of CUDA events and synchronised,
+    after one untimed step."""
     learner.train_step(batches)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    times = []
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        learner.train_step(batches)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def profile_steps(torch, learner, path: str, steps: int = 3, batches=None):
+    """Device time of ``steps`` train steps on one fixed batch (no loader),
+    traced with torch.profiler, kernel C's wrapper split by conv_ranges;
+    the trace goes next to ``path``."""
+    from torch.profiler import ProfilerActivity, profile
+    mode = learner.cfg.TPU.DENSE_CONV_MODE
+    if batches is None:
+        batches = fixed_batches(learner)
+    learner.train_step(batches)
+    torch.cuda.synchronize()
+    with conv_ranges(torch), profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA]) \
+            as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             learner.train_step(batches)
@@ -663,8 +843,10 @@ def profile_steps(torch, learner, path: str, steps: int = 3):
         wall = time.perf_counter() - t0
     print(f"profile: {steps} train steps ({mode}) on a fixed batch, "
           f"{wall / steps * 1e3:.1f} ms/step", flush=True)
-    summarize_profile(prof, wall, str(Path(path).with_suffix(
+    by_kernel = summarize_profile(prof, wall, str(Path(path).with_suffix(
         f".train_{mode}.json")))
+    print_conv_ranges(prof, steps)
+    return {k: v / steps for k, v in by_kernel.items()}
 
 
 def phase_train(torch, args, report):
@@ -723,7 +905,8 @@ def phase_train(torch, args, report):
         mask_cache.clear()
         stages = {}
         torch.cuda.reset_peak_memory_stats()
-        dc.launches_fwd = dc.launches_dx = dc.layout_copies = 0
+        dc.launches_fwd = dc.launches_dx = dc.launches_dk = 0
+        dc.layout_copies = 0
         cuda_radius.launches = cuda_select.launches = 0
         t0 = time.perf_counter()
         try:
@@ -735,7 +918,7 @@ def phase_train(torch, args, report):
             handle.remove()
         wall = time.perf_counter() - t0
         counts = {"fwd": dc.launches_fwd, "dx": dc.launches_dx,
-                  "layout_copies": dc.layout_copies,
+                  "dk": dc.launches_dk, "layout_copies": dc.layout_copies,
                   "radius_map": cuda_radius.launches,
                   "greedy_picks": cuda_select.launches}
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -787,7 +970,7 @@ def phase_train(torch, args, report):
         if still or moved_buffers:
             raise AssertionError(f"unmoved parameters {still[:5]}, changed "
                                  f"FrozenBN buffers {moved_buffers[:5]}")
-        # Kernel C: 25 convs, forward and dx, in each of a step's two
+        # Kernel C: 25 convs, forward, dx and dk, in each of a step's two
         # forwards; the round's and validation's forwards add 25 each.
         n_conv = sum(isinstance(m, DilatedConv3x3)
                      for m in learner.model.modules())
@@ -798,15 +981,18 @@ def phase_train(torch, args, report):
         print(f"kernel C: {n_conv} convs; {counts['fwd']} forward launches "
               f"(want {want_fwd}: {2 * n_conv} a step + {n_conv} for each "
               f"of {round_fwd} sweep and {val_fwd} validation forwards), "
-              f"{counts['dx']} dx (want {want_dx}: {2 * n_conv} a step); "
-              f"layout copies {counts['layout_copies'] / TRAIN_STEPS:.1f} "
-              "a step", flush=True)
+              f"{counts['dx']} dx and {counts['dk']} dk (want {want_dx} "
+              f"each: {2 * n_conv} a step); layout copies "
+              f"{counts['layout_copies'] / TRAIN_STEPS:.1f} a step",
+              flush=True)
         if (n_conv != 25 or counts["fwd"] != want_fwd
-                or counts["dx"] != want_dx or counts["radius_map"] <= 0
+                or counts["dx"] != want_dx or counts["dk"] != want_dx
+                or counts["radius_map"] <= 0
                 or counts["greedy_picks"] <= 0):
             raise AssertionError(f"kernel launches on the train path: "
                                  f"{counts}")
         report["dilated_conv3x3"]["launches"] = counts["fwd"] + counts["dx"]
+        report["dilated_conv3x3_wgrad"]["launches"] = counts["dk"]
         # Validation and the checkpoint.
         if not (math.isfinite(learner.best_miou) and learner.best_miou >= 0):
             raise AssertionError(f"validation mIoU {learner.best_miou}")
@@ -819,12 +1005,13 @@ def phase_train(torch, args, report):
         print(f"validation mIoU {learner.best_miou:.4f} over 2 images; "
               "last.ckpt loads back with strict=True", flush=True)
         # Kernel C on the first step's real tensors.
-        worst = max(check_conv(torch, dc, e["x"], e["w"], e["g"], e["d"],
-                               f"train step 0, {name} conv2")
-                    for name, e in (("layer3", captured[256]),
-                                    ("layer4", captured[512])))
-        report["dilated_conv3x3"]["max_abs_err"] = max(
-            report["dilated_conv3x3"]["max_abs_err"], worst)
+        for name, e in (("layer3", captured[256]), ("layer4", captured[512])):
+            errs = check_conv(torch, dc, e["x"], e["w"], e["g"], e["d"],
+                              f"train step 0, {name} conv2")
+            for key, parts in (("dilated_conv3x3", ("fwd", "dx")),
+                               ("dilated_conv3x3_wgrad", ("dk",))):
+                report[key]["max_abs_err"] = max(
+                    report[key]["max_abs_err"], *(errs[p] for p in parts))
 
         step_ms = [(a + b) * 1e3 for a, b in learner.step_seconds]
         load_ms = [a * 1e3 for a, _ in learner.step_seconds]
@@ -838,8 +1025,16 @@ def phase_train(torch, args, report):
               flush=True)
         print("train stages, s over the run: " + json.dumps(
             {k: round(v, 3) for k, v in stages.items()}), flush=True)
+        batches = fixed_batches(learner)
+        fixed = {"pallas": fixed_batch_ms(torch, learner, batches)}
+        print(f"train ms/step (pallas) on a fixed device-resident batch, "
+              f"CUDA events, no loader: median "
+              f"{statistics.median(fixed['pallas']):.2f} of "
+              + json.dumps([round(t, 2) for t in fixed["pallas"]]),
+              flush=True)
         if args.profile:
-            profile_steps(torch, learner, args.profile)
+            by_kernel = {"pallas": profile_steps(torch, learner, args.profile,
+                                                 batches=batches)}
         del learner, fresh, captured, before, after
         release(torch)
 
@@ -860,9 +1055,25 @@ def phase_train(torch, args, report):
               "stages " + json.dumps(
                   {k: round(v, 3) for k, v in stages_conv.items()}),
               flush=True)
+        # the same device-resident batch as the pallas steps
+        fixed["conv"] = fixed_batch_ms(torch, learner, batches)
+        med = {k: statistics.median(v) for k, v in fixed.items()}
+        print(f"train ms/step (conv) on a fixed device-resident batch, "
+              f"CUDA events, no loader: median {med['conv']:.2f} of "
+              + json.dumps([round(t, 2) for t in fixed["conv"]])
+              + f"; pallas / conv {med['pallas'] / med['conv']:.3f}",
+              flush=True)
         if args.profile:
-            profile_steps(torch, learner, args.profile)
-        del learner
+            by_kernel["conv"] = profile_steps(torch, learner, args.profile,
+                                              batches=batches)
+            diff = {k: by_kernel["pallas"].get(k, 0.0)
+                    - by_kernel["conv"].get(k, 0.0)
+                    for k in set(by_kernel["pallas"]) | set(by_kernel["conv"])}
+            print("profile: device ms a step, pallas less conv, by kernel "
+                  f"(sum {sum(diff.values()):+.3f}):", flush=True)
+            for k in sorted(diff, key=lambda k: -abs(diff[k]))[:20]:
+                print(f"  {diff[k]:+8.3f} ms {k[:100]}", flush=True)
+        del learner, batches
         release(torch)
 
 
@@ -922,14 +1133,16 @@ def phase_protocols(torch, args, report):
 
     def counts():
         return {"fwd": dc.launches_fwd, "dx": dc.launches_dx,
-                "radius_map": cuda_radius.launches,
+                "dk": dc.launches_dk, "radius_map": cuda_radius.launches,
                 "greedy_picks": cuda_select.launches}
 
     def zero_counts():
-        dc.launches_fwd = dc.launches_dx = dc.layout_copies = 0
+        dc.launches_fwd = dc.launches_dx = dc.launches_dk = 0
+        dc.layout_copies = 0
         cuda_radius.launches = cuda_select.launches = 0
 
     def expect(label, got, want):
+        want = {**want, "dk": want["dx"]}  # every backward needs dx and dk
         if got != want:
             raise AssertionError(f"{label}: launches {got}, want {want}")
         print(f"{label}: launches {got}", flush=True)
@@ -1194,14 +1407,16 @@ def phase_families(torch, args, report):
 
     def counts():
         return {"fwd": dc.launches_fwd, "dx": dc.launches_dx,
-                "radius_map": cuda_radius.launches,
+                "dk": dc.launches_dk, "radius_map": cuda_radius.launches,
                 "greedy_picks": cuda_select.launches}
 
     def zero_counts():
-        dc.launches_fwd = dc.launches_dx = dc.layout_copies = 0
+        dc.launches_fwd = dc.launches_dx = dc.launches_dk = 0
+        dc.layout_copies = 0
         cuda_radius.launches = cuda_select.launches = 0
 
     def expect(label, got, want):
+        want = {**want, "dk": want["dx"]}  # every backward needs dx and dk
         if got != want:
             raise AssertionError(f"{label}: launches {got}, want {want}")
         print(f"{label}: launches {got}", flush=True)
@@ -1652,14 +1867,16 @@ def phase_acdc(torch, args, report):
 
     def counts():
         return {"fwd": dc.launches_fwd, "dx": dc.launches_dx,
-                "radius_map": cuda_radius.launches,
+                "dk": dc.launches_dk, "radius_map": cuda_radius.launches,
                 "greedy_picks": cuda_select.launches}
 
     def zero_counts():
-        dc.launches_fwd = dc.launches_dx = dc.layout_copies = 0
+        dc.launches_fwd = dc.launches_dx = dc.launches_dk = 0
+        dc.layout_copies = 0
         cuda_radius.launches = cuda_select.launches = 0
 
     def expect(label, got, want):
+        want = {**want, "dk": want["dx"]}  # every backward needs dx and dk
         if got != want:
             raise AssertionError(f"{label}: launches {got}, want {want}")
         print(f"{label}: launches {got}", flush=True)
@@ -2014,6 +2231,10 @@ def phase_acdc(torch, args, report):
         release(torch)
 
 
+KERNELS = ("greedy_picks", "radius_map", "dilated_conv3x3",
+           "dilated_conv3x3_wgrad")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2060,9 +2281,7 @@ def main() -> int:
     phase_protocols(torch, args, report)
     phase_families(torch, args, report)
     phase_acdc(torch, args, report)
-    print(json.dumps({"kernels": [report["greedy_picks"],
-                                  report["radius_map"],
-                                  report["dilated_conv3x3"]]}), flush=True)
+    print(json.dumps({"kernels": [report[k] for k in KERNELS]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

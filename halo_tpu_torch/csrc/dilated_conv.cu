@@ -28,8 +28,8 @@
 //    shift is in the coordinates, and TMA zero-fills every element outside
 //    the tensor (the padding margin, ragged edges, channels past C), so no
 //    padded copy is made and no thread computes an address.
-//  - Operand B is a box (64, 256, 1) of a 3-D map over the weight repacked
-//    as (9, Co, C), K-major like A.
+//  - Operand B is a box of 64 channels x 256 outputs of one tap, from a
+//    3-D map over the weight repacked K-major like A, as (9, Co, C).
 //  - Both land 128B-swizzled, the layout wgmma reads through a shared
 //    memory descriptor. One producer thread keeps a ring of 4 stages
 //    (48 KB each) in flight against full/empty mbarrier pairs; two
@@ -52,15 +52,18 @@
 // pointers) through cuTensorMapEncodeTiled, fetched with
 // cudaGetDriverEntryPoint so that the library needs no -lcuda.
 //
-// A float32 instantiation (TPU.COMPUTE_DTYPE float32) runs a plain SIMT
-// tile (64x64, 4x4 outputs a thread, float32 FMAs, no TF32) over the
-// weight repacked as (9, C, Co), so the f32 path stays f32 as in the JAX
-// package.
+// A float32 instantiation (TPU.COMPUTE_DTYPE float32) stays in float32
+// FMAs (no TF32), as the JAX package computes it, over the weight repacked
+// as (9, C, Co). Its bound is the card's 67 TFLOP/s of float32 (0.507 ms
+// at layer3), so it is a register-tiled SIMT implicit GEMM: 128 x 128
+// outputs a block of 256 threads, 8 x 8 a thread read as four 16-byte
+// shared loads a channel (64 FMAs for 4 loads, no bank conflicts), 16
+// channels a step, two buffers a tile with one barrier a step; the next
+// step's tiles load while the FMAs run: B by cp.async (a zero source size
+// past Co), A through registers (it is transposed on its way to shared
+// memory, which cp.async cannot do). Two blocks an SM.
 
-#include <cuda.h>  // CUtensorMap and the encoder's types; no driver calls
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "dilated_conv.cuh"
 
 namespace {
 
@@ -84,197 +87,9 @@ constexpr int kBarOffset = kStages * kStageBytes + 2 * kEpiBytes;
 constexpr int kSmemBytes = kBarOffset + 2 * kStages * 8 + 1024;  // + align
 constexpr int kThreads = 384;          // producer warpgroup + 2 consumers
 constexpr int kBf16Align = 32;         // the C and Co rule (supports())
-// A wait this long means a broken pipeline: trap rather than hang the card.
-constexpr long long kHangCycles = 1LL << 33;
 
 static_assert(kBM == 2 * 64, "two consumer warpgroups of 64 rows");
 static_assert(64 % kTW == 0, "a consumer's 64 pixels are whole tile rows");
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Spin until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  long long start = 0;
-  for (int spin = 0;; ++spin) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spin == 0)
-      start = clock64();
-    else if (clock64() - start > kHangCycles)
-      __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
-                                             uint32_t src, int c0, int c1,
-                                             int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile of 128-byte rows,
-// 128B-swizzled, 1024-byte aligned: 8-row core groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
-  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |            // LBO (unused here)
-         (static_cast<uint64_t>(1024 >> 4) << 32) |    // SBO
-         (static_cast<uint64_t>(1) << 62);             // 128B swizzle
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving accumulator accesses across the async
-// wgmma boundaries.
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (+)= A (64 x 16, K-major smem) * B (256 x 16, K-major smem)^T.
-__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
-                                                 uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
-      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
-      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
-      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
-      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
-      "%127}, "
-      "%128, %129, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
-        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
-        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
-        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (+)= A (64 x 16, K-major smem) * B (128 x 16, K-major smem)^T.
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                                 uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
 
 // A work item: a (128-pixel x 256-channel) tile, or one 128-channel half
 // of one (narrow). Items [0, full_items) are whole tiles in order; after
@@ -331,7 +146,7 @@ __device__ __forceinline__ void consume_item(const Item& tl, int steps,
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {  // +32 bytes along K each
       if constexpr (kN == 256)
-        wgmma_m64n256k16(acc, da + 2 * kk, db + 2 * kk,
+        wgmma_m64n256k16<0, 0>(acc, da + 2 * kk, db + 2 * kk,
                          (step > 0 || kk > 0) ? 1 : 0);
       else
         wgmma_m64n128k16(acc, da + 2 * kk, db + 2 * kk,
@@ -434,8 +249,7 @@ conv_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
           tma_load_4d(a_dst, &tm_x, full_bar + 8 * s, k0,
                       t.w0 + (tap % 3 - 1) * d, t.h0 + (tap / 3 - 1) * d,
                       t.b);
-          tma_load_3d(a_dst + kABytes, wmap, full_bar + 8 * s, k0, t.n0,
-                      tap);
+          tma_load_3d(a_dst + kABytes, wmap, full_bar + 8 * s, k0, t.n0, tap);
         }
       }
     }
@@ -460,134 +274,145 @@ conv_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
   }
 }
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library links against the runtime alone.
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &status) == cudaSuccess &&
-        status == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// A bf16 tensor map over a dense tensor: dims innermost first, strides in
-// bytes of dims 1.., 128B swizzle, zero fill outside the tensor.
-bool encode_map(EncodeTiledFn fn, CUtensorMap* map, const void* ptr,
-                int rank, const cuuint64_t* dims, const cuuint64_t* strides,
-                const cuuint32_t* box) {
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-            const_cast<void*>(ptr), dims, strides, box, ones,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // ---------------------------------------------------------------------------
-// float32 SIMT kernel
+// float32 SIMT kernel: a register-tiled implicit GEMM
 // ---------------------------------------------------------------------------
 
-constexpr int kFM = 64;
-constexpr int kFN = 64;
-constexpr int kFK = 16;
+constexpr int kFM = 128;               // pixels a block
+constexpr int kFN = 128;               // output channels a block
+constexpr int kFK = 16;                // channels a step; the C, Co rule
+constexpr int kFThreads = 256;         // 16 x 16, 8 x 8 outputs a thread
+constexpr int kFPitch = kFM + 4;       // A's row pitch, 16-byte aligned
 
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kFThreads, 2)
 conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w9,
                 float* __restrict__ y, int B, int H, int W, int C, int Co,
                 int d) {
-  __shared__ float As[kFK][kFM + 4];  // k-major: a row of k is contiguous
-  __shared__ float Bs[kFK][kFN];
+  constexpr int kA4 = 2;  // float4s of A a thread a step
+  constexpr int kB4 = 2;  // and of B (rows b_k and b_k + 8)
+  // Two buffers of each tile, k-major: a row of k holds the block's 128
+  // pixels (A) or 128 output channels (B) contiguous.
+  __shared__ __align__(16) float As[2][kFK][kFPitch];
+  __shared__ __align__(16) float Bs[2][kFK][kFN];
   const int tid = threadIdx.x;
   const int M = B * H * W;
-  const int m0 = blockIdx.x * kFM;
-  const int n0 = blockIdx.y * kFN;
+  // Output channels inner in the launch order: a pixel tile's A is read
+  // from L2 by its neighbours.
+  const int n_tiles = (Co + kFN - 1) / kFN;
+  const int n0 = (blockIdx.x % n_tiles) * kFN;
+  const int m0 = (blockIdx.x / n_tiles) * kFM;
 
-  // A loads: one pixel row and one float4 of channels a thread.
-  const int a_row = tid / 4;
-  const int a_c4 = (tid % 4) * 4;
-  const int am = m0 + a_row;
+  // A loads: one pixel and 8 channels a thread; a warp's lanes take 32
+  // neighbouring pixels, so the transposing stores to As land in 32 banks.
+  const int a_m = tid % kFM;
+  const int a_k = (tid / kFM) * (kFK / 2);
+  const int am = m0 + a_m;
   const bool a_in = am < M;
   const int amm = a_in ? am : 0;
-  const int aw = amm % W, ah = (amm / W) % H, ab = amm / (W * H);
-  // B loads: one channel row and one float4 of outputs a thread.
-  const int b_row = tid / 16;
-  const int b_col = (tid % 16) * 4;
-  const bool b_ok = n0 + b_col < Co;
+  const int aw = amm % W, ah = (amm / W) % H;
+  const float* xa = x + static_cast<long long>(amm) * C + a_k;
+  // B loads: rows b_k + 8r, one 16-byte cp.async each; a warp copies 512
+  // contiguous bytes of a row. Past Co (Co % 16 == 0: a copy is wholly in
+  // or out) the source size is zero and the copy writes zeros.
+  const int b_k = tid / 32;
+  const int b_n = (tid % 32) * 4;
+  const bool b_ok = n0 + b_n < Co;
+  const float* wb = b_ok ? w9 + static_cast<long long>(b_k) * Co + n0 + b_n
+                         : w9;
+  const uint32_t bs = smem_addr(&Bs[0][b_k][b_n]);
 
   const int tx = tid % 16, ty = tid / 16;
-  float acc[4][4] = {};
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
   const int k_steps = C / kFK;
-  for (int step = 0; step < 9 * k_steps; ++step) {
+  const int steps = 9 * k_steps;
+  float4 ra[kA4];  // the next step's A, prefetched into registers
+  auto load = [&](int step, int buf) {
     const int tap = step / k_steps;
     const int k0 = (step % k_steps) * kFK;
-    const int hh = ah + (tap / 3 - 1) * d;
-    const int ww = aw + (tap % 3 - 1) * d;
-    float4 av = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (a_in && hh >= 0 && hh < H && ww >= 0 && ww < W)
-      av = *reinterpret_cast<const float4*>(
-          x + ((static_cast<long long>(ab) * H + hh) * W + ww) * C + k0 +
-          a_c4);
-    float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (b_ok)
-      bv = *reinterpret_cast<const float4*>(
-          w9 + (static_cast<long long>(tap) * C + k0 + b_row) * Co + n0 +
-          b_col);
-    __syncthreads();  // the previous step's tiles are consumed
-    As[a_c4 + 0][a_row] = av.x;
-    As[a_c4 + 1][a_row] = av.y;
-    As[a_c4 + 2][a_row] = av.z;
-    As[a_c4 + 3][a_row] = av.w;
-    *reinterpret_cast<float4*>(&Bs[b_row][b_col]) = bv;
-    __syncthreads();
+    const int dh = (tap / 3 - 1) * d, dw = (tap % 3 - 1) * d;
+    const bool in = a_in && ah + dh >= 0 && ah + dh < H && aw + dw >= 0 &&
+                    aw + dw < W;
+    const float4* pa = reinterpret_cast<const float4*>(
+        xa + static_cast<long long>(dh * W + dw) * C + k0);
+#pragma unroll
+    for (int r = 0; r < kA4; ++r)
+      ra[r] = in ? pa[r] : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float* pb = wb + (b_ok ? (static_cast<long long>(tap) * C + k0) *
+                                       Co
+                                 : 0);
+#pragma unroll
+    for (int r = 0; r < kB4; ++r)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                       bs + (buf * kFK * kFN + 8 * r * kFN) * 4),
+                   "l"(pb + (b_ok ? 8LL * r * Co : 0)), "r"(b_ok ? 16 : 0)
+                   : "memory");
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int r = 0; r < kA4; ++r) {
+      As[buf][a_k + 4 * r + 0][a_m] = ra[r].x;
+      As[buf][a_k + 4 * r + 1][a_m] = ra[r].y;
+      As[buf][a_k + 4 * r + 2][a_m] = ra[r].z;
+      As[buf][a_k + 4 * r + 3][a_m] = ra[r].w;
+    }
+  };
+
+  load(0, 0);
+  store(0);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  for (int step = 0; step < steps; ++step) {
+    const int buf = step & 1;
+    const bool more = step + 1 < steps;
+    if (more) load(step + 1, buf ^ 1);  // in flight over the FMAs
 #pragma unroll
     for (int k = 0; k < kFK; ++k) {
-      float a[4], b[4];
+      // Rows ty*4.. and 64+ty*4.., columns tx*4.. and 64+tx*4..: four
+      // 16-byte loads, broadcast (A) or 256 contiguous bytes (B) a warp.
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][k][ty * 4]);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(&As[buf][k][64 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][k][tx * 4]);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(&Bs[buf][k][64 + tx * 4]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[k][ty * 4 + i];
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[k][tx * 4 + j];
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    // The other buffer was last read in the previous step, before the
+    // barrier that ended it: one barrier a step.
+    if (more) store(buf ^ 1);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+  }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    if (m >= M) continue;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + h * 64 + tx * 4;
+      if (n < Co)
+        *reinterpret_cast<float4*>(y + static_cast<long long>(m) * Co + n) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                        acc[i][4 * h + 3]);
     }
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    const int n = n0 + tx * 4;
-    if (m < M && n < Co)
-      *reinterpret_cast<float4*>(y + static_cast<long long>(m) * Co + n) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  }
-}
-
-// The rule of ops/dilated_conv.py:supports. It is symmetric in C and Co:
-// the input gradient runs this kernel with the two swapped, so a forward
-// that launches has an input gradient that launches too.
-bool shape_ok(int B, int H, int W, int C, int Co, int d, int k_align) {
-  const long long m = static_cast<long long>(B) * H * W;
-  return B > 0 && H > 0 && W > 0 && d >= 1 && C > 0 && C % k_align == 0 &&
-         Co > 0 && Co % k_align == 0 && m * (C > Co ? C : Co) < (1LL << 31);
 }
 
 }  // namespace
 
-// x: (B, H, W, C) bf16; wk: the weight repacked K-major as (9, Co, C) bf16;
-// y: (B, H, W, Co) bf16. All 16-byte aligned and contiguous.
+// x: (B, H, W, C) bf16, wk: the weight repacked K-major as (9, Co, C)
+// bf16, y: (B, H, W, Co) bf16; all contiguous and 16-byte aligned.
 extern "C" int halo_dilated_conv3x3_bf16(const void* x, const void* wk,
                                          void* y, int B, int H, int W, int C,
                                          int Co, int d, void* stream) {
@@ -597,35 +422,24 @@ extern "C" int halo_dilated_conv3x3_bf16(const void* x, const void* wk,
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t e = 2;  // bytes a bf16
   CUtensorMap tm_x, tm_w, tm_w_half, tm_y;
-  const cuuint64_t x_dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
-                                (cuuint64_t)B};
-  const cuuint64_t x_strides[3] = {C * e, (cuuint64_t)W * C * e,
-                                   (cuuint64_t)H * W * C * e};
-  const cuuint32_t x_box[4] = {kBK, kTW, kTH, 1};
+  // Dims innermost first: (C, Co, 9).
   const cuuint64_t w_dims[3] = {(cuuint64_t)C, (cuuint64_t)Co, 9};
   const cuuint64_t w_strides[2] = {C * e, (cuuint64_t)Co * C * e};
   const cuuint32_t w_box[3] = {kBK, kBN, 1};
   const cuuint32_t w_half_box[3] = {kBK, kBN / 2, 1};
-  const cuuint64_t y_dims[4] = {(cuuint64_t)Co, (cuuint64_t)W, (cuuint64_t)H,
-                                (cuuint64_t)B};
-  const cuuint64_t y_strides[3] = {Co * e, (cuuint64_t)W * Co * e,
-                                   (cuuint64_t)H * W * Co * e};
-  const cuuint32_t y_box[4] = {64, kTW, 64 / kTW, 1};
-  if (!encode_map(fn, &tm_x, x, 4, x_dims, x_strides, x_box) ||
+  if (!encode_nhwc_map(fn, &tm_x, x, B, H, W, C, kTW, kTH) ||
       !encode_map(fn, &tm_w, wk, 3, w_dims, w_strides, w_box) ||
       !encode_map(fn, &tm_w_half, wk, 3, w_dims, w_strides, w_half_box) ||
-      !encode_map(fn, &tm_y, y, 4, y_dims, y_strides, y_box))
+      !encode_nhwc_map(fn, &tm_y, y, B, H, W, Co, kTW, 64 / kTW))
     return static_cast<int>(cudaErrorInvalidValue);
 
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(conv_bf16_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  // Once a process: the SM count and the shared-memory opt-in.
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      conv_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int sms = sm_count();
+  if (sms == 0) return static_cast<int>(cudaErrorNoDevice);
   const int tiles_w = (W + kTW - 1) / kTW;
   const int tiles_h = (H + kTH - 1) / kTH;
   const int n_tiles = (Co + kBN - 1) / kBN;
@@ -654,9 +468,9 @@ extern "C" int halo_dilated_conv3x3_f32(const void* x, const void* w9, void* y,
   if (!shape_ok(B, H, W, C, Co, d, kFK))
     return static_cast<int>(cudaErrorInvalidValue);
   const int M = B * H * W;
-  dim3 grid((M + kFM - 1) / kFM, (Co + kFN - 1) / kFN);
-  conv_f32_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w9),
-      static_cast<float*>(y), B, H, W, C, Co, d);
+  const int grid = ((Co + kFN - 1) / kFN) * ((M + kFM - 1) / kFM);
+  conv_f32_kernel<<<grid, kFThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(x), static_cast<const float*>(w9),
+          static_cast<float*>(y), B, H, W, C, Co, d);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-The sources are ``halo_tpu_torch/csrc/*.cu``, plain CUDA C++ with a C
-interface. At first use they are compiled for Hopper (``sm_90a``), one
-``nvcc`` per source, all started together, and linked into one shared
-library that ``ctypes`` loads. The library goes to ``build/cuda/`` at the
-root of the checkout (listed in ``.gitignore``), named by a hash of the
-sources, so a changed source rebuilds and an unchanged one is reused.
+The sources are ``halo_tpu_torch/csrc/*.cu`` (with the headers beside
+them), plain CUDA C++ with a C interface. At first use they are compiled
+for Hopper (``sm_90a``), one ``nvcc`` per source, all started together,
+and linked into one shared library that ``ctypes`` loads. The library
+goes to ``build/cuda/`` at the root of the checkout (listed in
+``.gitignore``), named by a hash of the sources, so a changed source
+rebuilds and an unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -22,13 +23,15 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cuda"
-SOURCES = ("dilated_conv.cu", "radius.cu", "select.cu")
+SOURCES = ("dilated_conv.cu", "dilated_conv_wgrad.cu", "radius.cu",
+           "select.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _lock = threading.Lock()
 _lib = None
 
-# C entry points: name -> argtypes; each returns a cudaError_t as int.
+# C entry points: name -> argtypes; each returns a cudaError_t as int,
+# except those in _RESTYPES.
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _SIGNATURES = {
@@ -37,7 +40,11 @@ _SIGNATURES = {
     "halo_greedy_picks": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "halo_dilated_conv3x3_bf16": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "halo_dilated_conv3x3_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "halo_dilated_conv3x3_wgrad_bf16": (_P, _P, _P, _P, _LL, _I, _I, _I, _I,
+                                        _I, _I, _P),
+    "halo_dilated_conv3x3_wgrad_workspace": (_I, _I, _I, _I, _I, _I),
 }
+_RESTYPES = {"halo_dilated_conv3x3_wgrad_workspace": _LL}
 
 
 def _nvcc() -> str:
@@ -50,8 +57,8 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha256()
-    for name in SOURCES:
-        digest.update((CSRC / name).read_bytes())
+    for path in sorted(CSRC.glob("*.cu*")):
+        digest.update(path.name.encode() + path.read_bytes())
     digest.update(" ".join(ARCH_FLAGS).encode())
     return BUILD_DIR / f"libhalo_kernels_{digest.hexdigest()[:12]}.so"
 
@@ -109,7 +116,7 @@ def load():
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             lib.halo_cuda_error_string.argtypes = [ctypes.c_int]
             lib.halo_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -12,9 +12,12 @@ takes the plain version, ``dilated_conv3x3_plain``.
 
 The backward mirrors ``_vjp_bwd``: dx is the same kernel on the cotangent
 with the flipped, IO-transposed weight (for stride 1 and padding d that is
-again a pad-d dilation-d conv); dk is ``wgrad_taps``, nine big-K
-contractions through ``torch.mm`` (the JAX package leaves them to
-XLA), rounded to the weight's dtype.
+again a pad-d dilation-d conv; ``repack_flipped`` builds its operand in
+one copy); dk, nine big-K contractions in float32 rounded once to the
+weight's dtype, is ``csrc/dilated_conv_wgrad.cu`` for a CUDA bf16 tensor
+and ``wgrad_taps`` (``torch.mm``, its plain version) otherwise: in float32
+on the card it already beats cuDNN's wgrad. The cotangent's channels-last
+view is made once for both.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from .. import kernels
 # Kernel launches, counted where each launches and nowhere else.
 launches_fwd = 0
 launches_dx = 0
+launches_dk = 0
 # Copies made to bring an input that is not channels-last into the kernel's
 # layout (a cotangent handed back contiguous, for one).
 layout_copies = 0
@@ -72,6 +76,28 @@ def repack_kmajor(weight):
     weight[o, c, i, j])."""
     co, c = weight.shape[:2]
     return weight.permute(2, 3, 0, 1).reshape(9, co, c).contiguous()
+
+
+_REVERSED_TAPS = {}
+
+
+def repack_flipped(weight, kmajor: bool):
+    """The dx conv's operand in one copy: ``repack_kmajor(w)`` (bf16
+    kernel) or ``repack(w)`` (f32 kernel) of the flipped, IO-transposed
+    ``w = weight.flip(2, 3).transpose(0, 1)``, bit for bit. Flipping both
+    spatial axes reverses the tap order 3i+j -> 8-(3i+j), so this is the
+    plain repack of ``weight`` with the taps read backwards: entry
+    [t, c, o] (kmajor) or [t, o, c] is weight[o, c, (8-t)//3, (8-t)%3]."""
+    co, c = weight.shape[:2]
+    if kmajor:
+        taps = weight.permute(2, 3, 1, 0).reshape(9, c, co)
+    else:
+        taps = weight.permute(2, 3, 0, 1).reshape(9, co, c)
+    rev = _REVERSED_TAPS.get(weight.device)
+    if rev is None:
+        rev = torch.arange(8, -1, -1, device=weight.device)
+        _REVERSED_TAPS[weight.device] = rev
+    return torch.index_select(taps, 0, rev)
 
 
 def _taps(x_nhwc, d: int):
@@ -127,9 +153,9 @@ def _nhwc(t):
     return v
 
 
-def _launch(x, weight, d: int):
-    """Kernel C on CUDA tensors: NCHW x, (Co, C, 3, 3) weight -> NCHW
-    (channels-last) output in x's dtype."""
+def _check(x, weight, d: int):
+    """Raise on what kernel C does not take: NCHW x, (Co, C, 3, 3) weight,
+    the same dtype (bf16 or f32) and device, shapes under ``supports``."""
     if x.dtype != weight.dtype or x.dtype not in _ENTRY:
         raise TypeError(f"dilated_conv3x3: dtypes {x.dtype}/{weight.dtype}; "
                         "the kernel takes bf16 or f32, both the same")
@@ -139,33 +165,74 @@ def _launch(x, weight, d: int):
     if not supports(x.shape, weight.shape, d, x.dtype):
         raise ValueError(f"dilated_conv3x3: unsupported shapes "
                          f"{tuple(x.shape)} / {tuple(weight.shape)}, d={d}")
-    xh = _nhwc(x)
-    w9 = repack_kmajor(weight) if x.dtype == torch.bfloat16 else \
-        repack(weight)
+
+
+def _launch(xh, w9, co: int, d: int):
+    """Kernel C on a CUDA NHWC input and its weight operand (f32:
+    ``repack`` or ``repack_flipped``; bf16: ``repack_kmajor`` or
+    ``repack_flipped``) -> NCHW (channels-last) output in the input's
+    dtype."""
     b, h, w, c = xh.shape
-    co = weight.shape[0]
-    y = torch.empty((b, h, w, co), dtype=x.dtype, device=x.device)
+    y = torch.empty((b, h, w, co), dtype=xh.dtype, device=xh.device)
     if xh.data_ptr() % 16 or w9.data_ptr() % 16:
         raise ValueError("dilated_conv3x3: operands not 16-byte aligned")
-    entry = _ENTRY[x.dtype]
+    entry = _ENTRY[xh.dtype]
     err = getattr(kernels.load(), entry)(
         xh.data_ptr(), w9.data_ptr(), y.data_ptr(), b, h, w, c, co, int(d),
-        kernels.current_stream(x.device))
+        kernels.current_stream(xh.device))
     kernels.check(err, entry)
     return y.permute(0, 3, 1, 2)
 
 
-def _conv(x, weight, d: int, kind: str):
-    if x.device.type == "cpu":
-        return dilated_conv3x3_plain(x, weight, d)
-    if x.device.type != "cuda":
+_WORKSPACE_BYTES = {}  # (B, H, W, C, Co, d, device) -> the entry's count
+
+
+def _wgrad(xh, gh, d: int):
+    """dk by the weight-gradient kernel on CUDA bf16 NHWC x and cotangent
+    -> (Co, C, 3, 3) bf16, through a float32 workspace it sizes."""
+    b, h, w, c = xh.shape
+    co = gh.shape[3]
+    lib = kernels.load()
+    entry = "halo_dilated_conv3x3_wgrad_bf16"
+    key = (b, h, w, c, co, int(d), xh.device)
+    nbytes = _WORKSPACE_BYTES.get(key)
+    if nbytes is None:
+        nbytes = lib.halo_dilated_conv3x3_wgrad_workspace(b, h, w, c, co,
+                                                          int(d))
+        _WORKSPACE_BYTES[key] = nbytes
+    if nbytes < 0:
+        raise ValueError(f"dilated_conv3x3: the weight-gradient kernel "
+                         f"refuses x {tuple(xh.shape)}, g {tuple(gh.shape)}")
+    if xh.data_ptr() % 16 or gh.data_ptr() % 16:
+        raise ValueError("dilated_conv3x3: operands not 16-byte aligned")
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=xh.device)
+    dk = torch.empty((co, c, 3, 3), dtype=xh.dtype, device=xh.device)
+    err = getattr(lib, entry)(
+        xh.data_ptr(), gh.data_ptr(), dk.data_ptr(), ws.data_ptr(), nbytes,
+        b, h, w, c, co, int(d), kernels.current_stream(xh.device))
+    kernels.check(err, entry)
+    global launches_dk
+    launches_dk += 1
+    return dk
+
+
+def _cuda_or_cpu(x) -> bool:
+    """True on a CUDA tensor, False on a CPU one (the plain versions)."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"dilated_conv3x3: unsupported device {x.device}")
-    y = _launch(x, weight, d)
-    global launches_fwd, launches_dx
-    if kind == "fwd":
-        launches_fwd += 1
-    else:
-        launches_dx += 1
+    return x.device.type == "cuda"
+
+
+def _conv(x, weight, d: int):
+    """The forward: kernel C on CUDA, the plain version on the CPU."""
+    if not _cuda_or_cpu(x):
+        return dilated_conv3x3_plain(x, weight, d)
+    _check(x, weight, d)
+    w9 = repack_kmajor(weight) if x.dtype == torch.bfloat16 else \
+        repack(weight)
+    y = _launch(_nhwc(x), w9, weight.shape[0], d)
+    global launches_fwd
+    launches_fwd += 1
     return y
 
 
@@ -175,17 +242,35 @@ class _DilatedConv3x3(torch.autograd.Function):
     def forward(ctx, x, weight, d):
         ctx.save_for_backward(x, weight)  # residuals (x, k), as _vjp_fwd
         ctx.d = d
-        return _conv(x, weight, d, "fwd")
+        return _conv(x, weight, d)
 
     @staticmethod
     def backward(ctx, g):
+        global launches_dx
         x, weight = ctx.saved_tensors
+        d = ctx.d
         g = g.to(x.dtype)
+        want_dx, want_dk = ctx.needs_input_grad[:2]
         dx = dk = None
-        if ctx.needs_input_grad[0]:
-            dx = _conv(g, weight.flip(2, 3).transpose(0, 1), ctx.d, "dx")
-        if ctx.needs_input_grad[1]:
-            dk = wgrad_taps(x, g, ctx.d).to(weight.dtype)
+        if not _cuda_or_cpu(x):
+            if want_dx:
+                dx = dilated_conv3x3_plain(
+                    g, weight.flip(2, 3).transpose(0, 1), d)
+            if want_dk:
+                dk = wgrad_taps(x, g, d).to(weight.dtype)
+            return dx, dk, None
+        _check(x, weight, d)
+        gh = _nhwc(g)  # one channels-last cotangent for dx and dk
+        bf16 = x.dtype == torch.bfloat16
+        if want_dx:
+            dx = _launch(gh, repack_flipped(weight, kmajor=bf16),
+                         weight.shape[1], d)
+            launches_dx += 1
+        if want_dk:
+            if bf16:
+                dk = _wgrad(_nhwc(x), gh, d)
+            else:
+                dk = wgrad_taps(x, gh.permute(0, 3, 1, 2), d)
         return dx, dk, None
 
 

@@ -176,7 +176,7 @@ def test_select_pixels_matches_plain_twin(gen):
 
 
 # ---------------------------------------------------------------------------
-# Kernel C: the dilated 3x3 conv, forward and dx
+# Kernel C: the dilated 3x3 conv, forward, dx and dk
 # ---------------------------------------------------------------------------
 
 def _bf16_steps(got, want, floor):
@@ -214,16 +214,24 @@ def _conv_case(gen, b, c, co, h, w, dtype):
     (2, 512, 512, 80, 160, 4, torch.bfloat16),   # layer4, target
     (2, 128, 256, 16, 32, 2, torch.float32),
     (1, 48, 32, 9, 11, 2, torch.float32),        # ragged tiles, Cin != Cout
+    # the float32 tile is 128 pixels x 128 output channels
+    (1, 48, 16, 9, 11, 2, torch.float32),        # Co = 16
+    (1, 16, 48, 13, 7, 3, torch.float32),        # Co = 48, C = 16
+    (2, 144, 272, 10, 30, 1, torch.float32),     # M = 600, Co = 2*128 + 16
+    (1, 256, 128, 45, 37, 4, torch.float32),     # M = 1665: a ragged tile
 ])
 def test_dilated_conv_matches_plain(gen, b, c, co, h, w, d, dtype):
     from halo_tpu_torch.ops import dilated_conv as dc
     x, wt, g = _conv_case(gen, b, c, co, h, w, dtype)
     xk = x.clone().requires_grad_(True)
     wk = wt.clone().requires_grad_(True)
-    fwd, dx_before = dc.launches_fwd, dc.launches_dx
+    before = (dc.launches_fwd, dc.launches_dx, dc.launches_dk)
     got = dc.dilated_conv3x3(xk, wk, d)
     got.backward(g)
-    assert (dc.launches_fwd, dc.launches_dx) == (fwd + 1, dx_before + 1)
+    # dk is the weight-gradient kernel in bf16 and wgrad_taps in float32
+    dk_launches = 1 if dtype == torch.bfloat16 else 0
+    assert (dc.launches_fwd, dc.launches_dx, dc.launches_dk) == (
+        before[0] + 1, before[1] + 1, before[2] + dk_launches)
     assert got.is_contiguous(memory_format=torch.channels_last)
     xp = x.clone().requires_grad_(True)
     wp = wt.clone().requires_grad_(True)
@@ -237,6 +245,49 @@ def test_dilated_conv_matches_plain(gen, b, c, co, h, w, d, dtype):
             assert _bf16_steps(a, e, floor) <= 1.0
         else:
             assert float((a - e).abs().max()) <= floor
+
+
+def test_dilated_conv_weight_layout_gives_same_bits(gen):
+    """The bf16 forward on the channels_last weight the models hold and on
+    a contiguous one: both repacked to (9, Co, C), the same bits."""
+    from halo_tpu_torch.ops import dilated_conv as dc
+    x, wt, _ = _conv_case(gen, 2, 256, 160, 20, 45, torch.bfloat16)
+    cl = wt.contiguous(memory_format=torch.channels_last)
+    a = dc.dilated_conv3x3(x, wt, 2)
+    b = dc.dilated_conv3x3(x, cl, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.parametrize("b,c,co,h,w,d", [
+    (1, 64, 96, 7, 13, 3),        # ragged pixel steps (32 x 2), C != Co
+    (1, 32, 64, 9, 37, 1),        # C < 64: a box past C, all zeros
+    (2, 96, 160, 13, 45, 4),      # a partial 64-channel box each way
+    (1, 160, 96, 6, 70, 2),       # C across two 128-channel tiles
+    (2, 128, 512, 16, 40, 2),     # two 256-channel tiles of Co
+    (1, 32, 32, 3, 5, 1),         # 2 pixel steps: fewer units than SMs
+    (1, 64, 64, 1, 1, 1),         # one pixel
+    (1, 64, 32, 5, 9, 8),         # d beyond H and W: only the centre tap
+    (2, 256, 256, 90, 160, 2),    # layer3 of the recipe
+    (2, 512, 512, 90, 160, 2),    # layer4
+    (2, 512, 512, 90, 160, 4),
+])
+def test_dilated_conv_wgrad_matches_plain(gen, b, c, co, h, w, d):
+    """The weight-gradient kernel against wgrad_taps on float32 operands
+    (the sums it rounds once to bf16): one bf16 step beyond 1e-5 of
+    max|dk|; two calls give the same bits."""
+    from halo_tpu_torch.ops import dilated_conv as dc
+    x, _, g = _conv_case(gen, b, c, co, h, w, torch.bfloat16)
+    xh, gh = dc._nhwc(x), dc._nhwc(g)
+    got = dc._wgrad(xh, gh, d)
+    again = dc._wgrad(xh, gh, d)
+    want = dc.wgrad_taps(x.float(), g.float(), d)
+    torch.cuda.synchronize()
+    assert got.shape == (co, c, 3, 3) and got.dtype == torch.bfloat16
+    assert got.is_contiguous()
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    floor = 1e-5 * float(want.abs().max())
+    assert _bf16_steps(got, want, floor) <= 1.0
 
 
 def test_dilated_conv_refuses(gen):
@@ -262,3 +313,5 @@ def test_dilated_conv_refuses(gen):
             kernels.current_stream(x.device))
         with pytest.raises(RuntimeError, match="CUDA error"):
             kernels.check(err, "halo_dilated_conv3x3_bf16")
+        assert lib.halo_dilated_conv3x3_wgrad_workspace(1, 8, 8, c, co,
+                                                        2) == -1
