@@ -100,8 +100,36 @@ Phases, each of which fails the run (non-zero exit) on any error:
              a batch, held against the plain dist0); (3) forward and
              backward of segformer_mitb4 at 2x640x1280, with and without
              TPU.REMAT: the median of 3 steps, and the device's busy time
-             in a fourth under torch.profiler. Every earlier phase runs at
-             its full depth.
+             in a fourth under torch.profiler.
+ 10. int8    int8 (W8A8) evaluation and the int8 sweep: (1) the int8 conv
+             kernel (csrc/int8_conv.cu) bit for bit against its plain
+             version (float64 sums of the int8 values) at the path's shapes
+             (R101 at a 640x1280 input: layer1 3x3 64, layer2's 3x3 128
+             stride 2 and d=1, layer3 256 d=2, layer4 512 d=4, the ASPP
+             bottleneck 2560->512; MiT-B4's pe3 3x3 stride 2 128->320) at
+             B = 2 (the test entry's flip pair) and 4 (the sweep), bf16
+             and f32 out, and at edge cases (odd H and W, channels no
+             multiple of the tile or of 16, a padded 1x1, 5x5, amax below
+             max|x| and 0); the torch._int_mm GEMMs against their plain
+             product; times kernel, plain version and cuDNN's bf16 conv
+             with the bound; (2) halo_tpu_torch.test.main on
+             configs/gtav/test.yaml with TPU.QUANT_EVAL True and
+             TEST.SAVE_EMBED on phase train's last.ckpt over 2 val images,
+             calibrated on the target train split: int8 kernel and
+             torch._int_mm launches as the eligibility rule counts them,
+             kernel C 0, kernel B 1 a batch, the rich radius map against
+             the plain dist0, then the float entry on the same checkpoint
+             (mIoU, ms/img and the share of pixels predicted alike); (3)
+             the same on configs/acdc/test.yaml with phase acdc's
+             last.ckpt (segformer_mitb4); (4) train.main on
+             configs/gtav/source_target.yaml with TPU.QUANT_SWEEP True and
+             TPU.DENSE_CONV_MODE pallas, round 1 at step 0 and 2 steps:
+             2331 picks an image from the int8 twin, masks and indicators,
+             launches (A 2, B 64, the int8 kernel in the sweep, C in the
+             steps), every twin amax > 0, the round's stages, then a float
+             round on the same weights (stages and the share of its
+             labelled pixels the int8 round labelled). Every earlier phase
+             runs at its full depth.
 
 Prints the kernels JSON line, the card's name and power limit
 (nvidia-smi), and as the last line
@@ -115,6 +143,7 @@ import argparse
 import contextlib
 import json
 import math
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1004,6 +1033,8 @@ def phase_train(torch, args, report):
             raise AssertionError("last.ckpt does not hold the final model")
         print(f"validation mIoU {learner.best_miou:.4f} over 2 images; "
               "last.ckpt loads back with strict=True", flush=True)
+        shutil.copy(Path(cfg.SAVE_DIR) / "last.ckpt",
+                    report["work"] / "r101_last.ckpt")  # for phase int8
         # Kernel C on the first step's real tensors.
         for name, e in (("layer3", captured[256]), ("layer4", captured[512])):
             errs = check_conv(torch, dc, e["x"], e["w"], e["g"], e["d"],
@@ -2086,6 +2117,7 @@ def phase_acdc(torch, args, report):
                              torch.randn((2, 160, 320, 64), device=DEVICE)),
               flush=True)
         ckpt = str(Path(cfg.SAVE_DIR) / "last.ckpt")
+        shutil.copy(ckpt, report["work"] / "mitb4_last.ckpt")  # phase int8
         del learner, model, before, after, loaded, trunk_file, score, maps
         del native, b_rows, logits, embed
         release(torch)
@@ -2231,8 +2263,492 @@ def phase_acdc(torch, args, report):
         release(torch)
 
 
+INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core rate, H100 SXM
+# phase int8 (1): (label, Cin, Cout, H, W, kernel, stride, dilation) of the
+# int8 conv kernel's calls on the main path: R101 at a 640x1280 input
+# (layer1 at 160x320, the trunk at 80x160), MiT-B4's pe3 on its 80x160
+# stage-2 map; each at the test entry's flip pair and the sweep's batch
+INT8_CASES = (
+    ("R101 layer1 3x3 64", 64, 64, 160, 320, 3, 1, 1),
+    ("R101 layer2.0 3x3 128 s2", 128, 128, 160, 320, 3, 2, 1),
+    ("R101 layer2 3x3 128", 128, 128, 80, 160, 3, 1, 1),
+    ("R101 layer3 3x3 256 d2", 256, 256, 80, 160, 3, 1, 2),
+    ("R101 layer4 3x3 512 d4", 512, 512, 80, 160, 3, 1, 4),
+    ("ASPP bottleneck 3x3 2560->512", 2560, 512, 80, 160, 3, 1, 1),
+    ("MiT-B4 pe3 3x3 s2 128->320", 128, 320, 80, 160, 3, 2, 1),
+)
+INT8_BATCHES = (2, 4)
+# (label, M, K, N) of the GEMM path (torch._int_mm) at a 640x1280 input
+INT8_GEMMS = (
+    ("R101 layer3 conv1 1024->256, B 2", 2 * 80 * 160, 1024, 256),
+    ("R101 layer3 conv3 256->1024, B 2", 2 * 80 * 160, 256, 1024),
+    ("ASPP global branch 2048->512, B 2 (rows padded)", 2, 2048, 512),
+    ("decoder.0 pointwise 560->512, B 2", 2 * 160 * 320, 560, 512),
+    ("MiT-B4 stage-1 fc2 256->64, B 2", 2 * 160 * 320, 256, 64),
+    ("MiT-B4 stage-3 fc1 320->1280, B 2", 2 * 40 * 80, 320, 1280),
+)
+
+
+def int8_conv_bound(b, c, co, h, w, ho, wo, k) -> tuple:
+    """bound_ms of one int8 conv: the int8 input read once, the weight
+    once, the bf16 output written once; 2 operations a multiply-add at the
+    int8 rate."""
+    macs = b * ho * wo * co * k * k * c
+    nbytes = b * h * w * c + co * k * k * c + b * ho * wo * co * 2
+    return bound_ms(nbytes, 2 * macs, INT8_OPS_PER_S)
+
+
+def int8_kernel_checks(torch, gen, report):
+    """Phase int8 (1): the int8 conv kernel against its plain version, bit
+    for bit, at the path's shapes in both batches and at edge cases; the
+    GEMM path against its plain product; times kernel, plain version and
+    cuDNN's bf16 conv (channels_last) at each shape, with the bound."""
+    import torch.nn.functional as F
+    from halo_tpu_torch.ops import quant
+
+    def case(b, c, co, h, w, k):
+        xq = torch.randint(-127, 128, (b, c, h, w), generator=gen,
+                           device=DEVICE, dtype=torch.int8)
+        xq = xq.contiguous(memory_format=torch.channels_last)
+        wq = torch.randint(-127, 128, (co, c, k, k), generator=gen,
+                           device=DEVICE, dtype=torch.int8)
+        sc = torch.rand((co,), generator=gen, device=DEVICE) * 1e-3
+        return xq, wq, sc
+
+    # one small launch, synchronised at once: a fault shows here
+    xq, wq, sc = case(1, 64, 64, 9, 11, 3)
+    quant.int8_conv_kernel(xq, wq, sc, 1, 1, 1, torch.bfloat16)
+    torch.cuda.synchronize()
+    print("int8: first kernel launch ran", flush=True)
+    worst, layer3 = 0.0, None
+    for b in INT8_BATCHES:
+        for label, c, co, h, w, k, s, d in INT8_CASES:
+            xq, wq, sc = case(b, c, co, h, w, k)
+            packed = quant.pack_weight(wq)
+            p = d * (k - 1) // 2
+            geo = (s, p, d)
+            got = quant.int8_conv_kernel(xq, wq, sc, *geo, torch.bfloat16,
+                                         packed)
+            got32 = quant.int8_conv_kernel(xq, wq, sc, *geo, torch.float32,
+                                           packed)
+            want32 = quant.int8_conv_plain(xq, wq, sc, *geo)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, want32.to(torch.bfloat16))
+                    and torch.equal(got32, want32)):
+                raise AssertionError(f"int8 kernel off its plain version at "
+                                     f"{label}, B {b}")
+            worst = max(worst, float((got32 - want32).abs().max()))
+            ho, wo = got.shape[2:]
+            xb = torch.randn((b, c, h, w), generator=gen, device=DEVICE).to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            wb = torch.randn((co, c, k, k), generator=gen, device=DEVICE).to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            del got, got32, want32
+            with torch.no_grad():
+                ms = cuda_ms(torch, lambda i: quant.int8_conv_kernel(
+                    xq, wq, sc, *geo, torch.bfloat16, packed), 20)
+                plain = cuda_ms(torch, lambda i: quant.int8_conv_plain(
+                    xq, wq, sc, *geo, torch.bfloat16), 3, warmup=1)
+                lib = cuda_ms(torch, lambda i: F.conv2d(
+                    xb, wb, stride=s, padding=p, dilation=d), 20)
+            b_ms, b_by = int8_conv_bound(b, c, co, h, w, ho, wo, k)
+            tops = 2 * b * ho * wo * co * k * k * c / ms / 1e9
+            print(f"int8 conv {label}, B {b}: ({b}, {c}, {h}, {w}) -> "
+                  f"({b}, {co}, {ho}, {wo}) bit-exact (bf16 and f32 out); "
+                  f"kernel {ms:.4f} ms ({tops:.1f} TOPS, {b_ms / ms:.0%} of "
+                  f"the bound), plain {plain:.4f} ms, cuDNN bf16 "
+                  f"(channels_last) {lib:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by})", flush=True)
+            if layer3 is None and "layer3" in label:
+                layer3 = (ms, plain, b_ms, b_by, lib)
+            del xq, wq, sc, xb, wb, packed
+        release(torch)
+    # edge cases: odd H and W, channels no multiple of the tile or of 16,
+    # a padded 1x1, a 5x5 with stride and dilation
+    for geo in ((1, 128, 200, 81, 161, 3, 2, 1, 1),
+                (2, 48, 40, 13, 17, 3, 1, 2, 2),
+                (1, 20, 70, 9, 11, 3, 1, 1, 1),
+                (1, 64, 33, 7, 9, 1, 1, 1, 1),
+                (2, 64, 96, 13, 17, 5, 2, 3, 2)):
+        b, c, co, h, w, k, s, p, d = geo
+        xq, wq, sc = case(b, c, co, h, w, k)
+        got = quant.int8_conv_kernel(xq, wq, sc, s, p, d, torch.bfloat16)
+        want = quant.int8_conv_plain(xq, wq, sc, s, p, d, torch.bfloat16)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"int8 kernel off its plain version at "
+                                 f"edge case {geo}")
+    print("int8 conv kernel: bit-exact at the edge cases (odd H and W; Co "
+          "200, 40, 70, 33; C 48, 20; a padded 1x1; 5x5 stride 2 "
+          "dilation 2)", flush=True)
+    # float input clipped beyond amax, and amax = 0, through int8_conv
+    x = torch.randn((2, 256, 80, 160), generator=gen, device=DEVICE)
+    x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    w_int8, w_scale = quant.quantize_weight(torch.randn(
+        (256, 256, 3, 3), generator=gen, device=DEVICE))
+    for amax in (float(x.float().abs().max()) * 0.25, 0.0):
+        amax = torch.tensor(amax, device=DEVICE)
+        got = quant.int8_conv(x, w_int8, w_scale, amax, 1, 2, 2,
+                              torch.bfloat16)
+        xq, sx = quant.quantize_act(x, amax)
+        want = quant.int8_conv_plain(xq, w_int8, sx * w_scale, 1, 2, 2,
+                                     torch.bfloat16)
+        torch.cuda.synchronize()
+        clipped = float((xq.abs() == 127).float().mean())
+        if not (torch.equal(got, want) and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"int8_conv off at amax {float(amax)}")
+        print(f"int8_conv on a bf16 (2, 256, 80, 160) input, amax "
+              f"{float(amax):.4f}: bit-exact, {clipped:.4f} of the "
+              "activations at +-127", flush=True)
+    for label, m, k, n in INT8_GEMMS:
+        a = torch.randint(-127, 128, (m, k), generator=gen, device=DEVICE,
+                          dtype=torch.int8)
+        wg = torch.randint(-127, 128, (n, k), generator=gen, device=DEVICE,
+                           dtype=torch.int8)
+        sc = torch.rand((n,), generator=gen, device=DEVICE) * 1e-3
+        got = quant.int8_gemm(a, wg, sc, torch.bfloat16)
+        want = quant.int8_gemm_plain(a, wg, sc, torch.bfloat16)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"int8 GEMM off its plain version: {label}")
+        ms = cuda_ms(torch, lambda i: quant.int8_gemm(
+            a, wg, sc, torch.bfloat16), 20)
+        b_ms, b_by = bound_ms(m * k + n * k + m * n * 2, 2 * m * n * k,
+                              INT8_OPS_PER_S)
+        print(f"int8 GEMM {label} ({m}x{k} @ {k}x{n}): bit-exact; "
+              f"torch._int_mm + dequant {ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by})", flush=True)
+    ms, plain, b_ms, b_by, lib = layer3
+    report["int8_conv"] = {
+        "name": "int8_conv", "route": "cuda",
+        "source": "halo_tpu_torch/csrc/int8_conv.cu",
+        "replaces": "halo_tpu/ops/quant.py:81",
+        "launches": 0, "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+    release(torch)
+
+
+def int8_routes(torch, model, shapes) -> tuple:
+    """The eligibility rule's count for one forward of ``model``, given
+    the input (H, W) each QuantConv saw (``shapes``): (int8 kernel convs,
+    GEMM-path layers); a strided conv on a small grid runs float."""
+    from halo_tpu_torch.models.layers import QuantConv, QuantDense
+    kernel = gemm = 0
+    for mod in model.modules():
+        if isinstance(mod, QuantDense):
+            gemm += 1
+        elif isinstance(mod, QuantConv) and not mod._small_strided(
+                torch.empty((1, 1) + shapes[mod], device="meta")):
+            if mod._gemm():
+                gemm += 1
+            else:
+                kernel += 1
+    return kernel, gemm
+
+
+def phase_int8(torch, args, report):
+    """int8 (W8A8) evaluation and the int8 sweep: (1) the int8 conv kernel
+    against its plain version; (2) the quantised R101 test entry on phase
+    train's last.ckpt, then the float one; (3) the same for SegFormer-B4
+    on phase acdc's last.ckpt; (4) the source_target recipe with
+    TPU.QUANT_SWEEP, then a float round on the same weights. Launch
+    counters are zeroed before each run and read at once after it."""
+    from halo_tpu_torch import test as test_entry
+    from halo_tpu_torch import train
+    from halo_tpu_torch.active import cuda_radius, cuda_select
+    from halo_tpu_torch.active.region_selection import region_selection
+    from halo_tpu_torch.data import mask_cache
+    from halo_tpu_torch.data.build import build_active_loader
+    from halo_tpu_torch.data.catalog import DatasetCatalog
+    from halo_tpu_torch.data.masks import load_indicator, load_mask_png
+    from halo_tpu_torch.engine import learners
+    from halo_tpu_torch.engine.state import load_state_dict_file
+    from halo_tpu_torch.models import build_segmentor
+    from halo_tpu_torch.models.layers import DilatedConv3x3, QuantConv
+    from halo_tpu_torch.ops import dilated_conv as dc
+    from halo_tpu_torch.ops import quant
+    from halo_tpu_torch.ops.resize import resize_bilinear
+
+    gen = torch.Generator(device=DEVICE).manual_seed(args.seed + 8)
+    int8_kernel_checks(torch, gen, report)
+    card = card_line()
+    work = report["work"]
+
+    def counts():
+        return {"int8_conv": quant.launches, "int_mm": quant.gemm_calls,
+                "fwd": dc.launches_fwd, "dx": dc.launches_dx,
+                "dk": dc.launches_dk, "radius_map": cuda_radius.launches,
+                "greedy_picks": cuda_select.launches}
+
+    def zero_counts():
+        quant.launches = quant.gemm_calls = quant.layout_copies = 0
+        dc.launches_fwd = dc.launches_dx = dc.launches_dk = 0
+        dc.layout_copies = 0
+        cuda_radius.launches = cuda_select.launches = 0
+
+    def expect(label, got, want):
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, want {want}")
+        print(f"{label}: launches {got} (as the eligibility rule counts)",
+              flush=True)
+
+    def watch_shapes(model, shapes):
+        """Record the input (H, W) of every QuantConv of ``model``."""
+        for mod in model.modules():
+            if isinstance(mod, QuantConv):
+                mod.register_forward_pre_hook(
+                    lambda m, a: shapes.__setitem__(m, tuple(a[0].shape[-2:])))
+
+    launches_total = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        data = root / "datasets"
+        t0 = time.perf_counter()
+        write_gtav(data, 4, args.seed)
+        write_cityscapes(data, args.images, args.seed)
+        write_cityscapes(data, 2, args.seed + 1, split="val")
+        write_acdc(data, args.seed)
+        print(f"int8 setup (synthetic GTAV, Cityscapes and ACDC trees): "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        def test_run(label, recipe, name, ckpt, *extra):
+            """The test entry with TEST.SAVE_EMBED over 2 val images:
+            (result, launches, rich-eval ms a call, the first batch's
+            outputs, the learner's model, its QuantConvs' input sizes)."""
+            make_rich = learners.make_rich_eval_step
+            kept, call_ms, models, shapes = [], [], [], {}
+
+            def timed_rich(cfg, model):
+                step = make_rich(cfg, model)
+                models.append(model)
+                watch_shapes(model, shapes)
+
+                def run(img, label, flip=True):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = step(img, label, flip=flip)
+                    torch.cuda.synchronize()
+                    call_ms.append((time.perf_counter() - t0) * 1e3)
+                    if not kept:
+                        kept.append(out)
+                    return out
+
+                return run
+
+            learners.make_rich_eval_step = timed_rich
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            t0 = time.perf_counter()
+            try:
+                result = test_entry.main(
+                    ["-cfg", str(REPO / "configs" / recipe),
+                     "MODEL.WEIGHTS", "", "resume", ckpt,
+                     "TEST.SAVE_EMBED", "True", "TPU.DATASET_DIR", str(data),
+                     "OUTPUT_DIR", str(root / "out"), "NAME", name,
+                     "SEED", str(args.seed), *extra], device=DEVICE)
+                torch.cuda.synchronize()
+            finally:
+                learners.make_rich_eval_step = make_rich
+            wall = time.perf_counter() - t0
+            got = counts()
+            if len(call_ms) != 2 or not math.isfinite(result["mIoU"]):
+                raise AssertionError(f"{label}: {result}, {len(call_ms)} "
+                                     "batches")
+            print(f"{label}: mIoU {result['mIoU']:.4f} over 2 images; rich "
+                  f"eval ms/img {json.dumps([round(v, 2) for v in call_ms])}"
+                  f" (entry {wall:.1f} s with model build, resume and "
+                  f"calibration); peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+                  f"{card}", flush=True)
+            return result, got, call_ms, kept[0], models[0], shapes
+
+        def same_preds(name_a, name_b):
+            """Share of pixels predicted alike by two test entries."""
+            same = total = 0
+            for path in sorted((root / "out" / name_a / "embed")
+                               .glob("*.pt")):
+                a = torch.load(path, weights_only=False)["pred"]
+                b = torch.load(root / "out" / name_b / "embed" / path.name,
+                               weights_only=False)["pred"]
+                same += int((a == b).sum())
+                total += a.numel()
+            return same / max(total, 1)
+
+        def hold_rich_radius(label, r):
+            """The rich radius map against the plain dist0 of the same
+            embedding (t = tanh(r/2) near the ball's edge)."""
+            size = tuple(r["radius"].shape[1:3])
+            plain = resize_bilinear(cuda_radius.radius_map_reference(
+                r["embed"])[..., None], size)[..., 0]
+            t_diff = float((torch.tanh(r["radius"] / 2)
+                            - torch.tanh(plain / 2)).abs().max())
+            inner = torch.tanh(plain / 2) < 0.9
+            rel = (max_rel(torch, r["radius"][inner], plain[inner])
+                   if bool(inner.any()) else 0.0)
+            if rel > 1e-6 or t_diff > 1e-6:
+                raise AssertionError(f"{label}: rich radius off the plain "
+                                     f"dist0: rel {rel}, |t| {t_diff}")
+            print(f"{label}: rich radius map {tuple(r['radius'].shape)} vs "
+                  f"plain dist0: max rel diff {rel:.3e} where t < 0.9, max "
+                  f"|t| diff {t_diff:.3e}", flush=True)
+
+        for part, recipe, name, ckpt in (
+                ("(2) R101", "gtav/test.yaml", "r101",
+                 work / "r101_last.ckpt"),
+                ("(3) SegFormer-B4", "acdc/test.yaml", "mitb4",
+                 work / "mitb4_last.ckpt")):
+            result, got, call_ms, r, model, shapes = test_run(
+                f"{part} int8 test", recipe, name + "_int8", str(ckpt),
+                "TPU.QUANT_EVAL", "True")
+            quant.assert_calibrated(model)
+            kernel, gemm = int8_routes(torch, model, shapes)
+            n_conv_c = sum(isinstance(m, DilatedConv3x3)
+                           for m in model.modules())
+            expect(f"{part} int8 test", got, {
+                "int8_conv": 2 * kernel, "int_mm": 2 * gemm, "fwd": 0,
+                "dx": 0, "dk": 0, "radius_map": 2, "greedy_picks": 0})
+            if kernel <= 0 or n_conv_c:
+                raise AssertionError(f"{part}: {kernel} int8 kernel convs, "
+                                     f"{n_conv_c} kernel-C convs")
+            print(f"{part} int8 model: {kernel} k x k convs on the int8 "
+                  f"kernel and {gemm} layers on torch._int_mm a forward "
+                  "(one forward an image: the flip pair), "
+                  f"{quant.layout_copies} layout copies", flush=True)
+            launches_total += got["int8_conv"]
+            hold_rich_radius(f"{part} int8 test", r)
+            del r, model, shapes
+            release(torch)
+            float_result, _, float_ms, _, _, _ = test_run(
+                f"{part} float test (same checkpoint)", recipe,
+                name + "_float", str(ckpt))
+            print(f"{part}: int8 mIoU {result['mIoU']:.4f} against float "
+                  f"{float_result['mIoU']:.4f}; second image "
+                  f"{call_ms[1]:.2f} ms/img against float "
+                  f"{float_ms[1]:.2f}; "
+                  f"{same_preds(name + '_int8', name + '_float'):.4f} of "
+                  "the pixels predicted alike", flush=True)
+            release(torch)
+
+        # (4) the int8 sweep: round 1 at step 0 through train.main, the
+        # region_selection call wrapped to time its stages and keep stats
+        steps = 2
+        rounds = []
+
+        def timed_round(cfg, model, loader, round_number, **kwargs):
+            stages = {}
+            stats = region_selection(cfg, model, loader, round_number,
+                                     stage_seconds=stages, **kwargs)
+            rounds.append((model, stats, stages))
+            return stats
+
+        # the recipe's rounds (the first at step 0, 1% of the budget)
+        argv = ["-cfg", str(CONFIG), "TPU.DENSE_CONV_MODE", "pallas",
+                "TPU.QUANT_SWEEP", "True", "MODEL.WEIGHTS", "",
+                "resume", "", "SOLVER.NUM_ITER", str(steps),
+                "TPU.VAL_INTERVAL", "0",
+                "TPU.DATASET_DIR", str(data), "OUTPUT_DIR", str(root / "out"),
+                "NAME", "sweep_int8", "SEED", str(args.seed)]
+        shapes, run_stages = {}, {}
+        mask_cache.clear()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        learners.region_selection = timed_round
+        t0 = time.perf_counter()
+        try:
+            learner = train.main(argv, device=DEVICE,
+                                 stage_seconds=run_stages)
+            torch.cuda.synchronize()
+        finally:
+            learners.region_selection = region_selection
+        wall = time.perf_counter() - t0
+        got = counts()
+        twin = learner.quant_twin
+        (sweep_model, stats, stages), = rounds
+        cfg = learner.cfg
+        n = stats["images"]
+        picks = math.ceil(1024 * 2048 * cfg.ACTIVE.BUDGET
+                          / len(cfg.ACTIVE.SELECT_ITER) / 9)
+        if sweep_model is not twin or n != args.images or \
+                stats["picked"] != n * picks:
+            raise AssertionError(f"(4) int8 round: {stats}, want {n} x "
+                                 f"{picks} picks from the int8 twin")
+        quant.assert_calibrated(twin)
+        amax = [float(m.amax) for _, m in quant.quant_layers(twin)]
+        if quant.quant_layers(learner.model):
+            raise AssertionError("(4) the training model is quantised")
+        for entry in learner.active_loader.dataset.data_list:
+            mask = load_mask_png(entry["label_mask"])
+            ind = load_indicator(entry["indicator"])
+            if (mask.shape != (1024, 2048)
+                    or (ind["selected"] & ~ind["active"]).any()
+                    or ((mask != 255) & ~ind["selected"]).any()
+                    or not (mask != 255).any()):
+                raise AssertionError(f"(4) bad mask/indicator for "
+                                     f"{entry['name']}")
+        watch_shapes(twin, shapes)
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            w_in, h_in = cfg.INPUT.INPUT_SIZE_TEST
+            twin(torch.zeros((1, 3, h_in, w_in), device=DEVICE))
+        kernel, gemm = int8_routes(torch, twin, shapes)
+        batches = math.ceil(n / int(cfg.TPU.ACTIVE_BATCH))
+        n_conv_c = sum(isinstance(m, DilatedConv3x3)
+                       for m in learner.model.modules())
+        blocks = got["radius_map"]
+        expect("(4) int8 sweep", got, {
+            "int8_conv": batches * kernel, "int_mm": batches * gemm,
+            "fwd": 2 * n_conv_c * steps, "dx": 2 * n_conv_c * steps,
+            "dk": 2 * n_conv_c * steps, "radius_map": n * 8,
+            "greedy_picks": batches})
+        launches_total += got["int8_conv"]
+        per_img = {k: v / n * 1e3 for k, v in sorted(stages.items())}
+        print(f"(4) int8 sweep: {stats}; {n} masks and indicators written "
+              f"and consistent; twin amax all > 0 (min {min(amax):.4g} over "
+              f"{len(amax)} layers); kernel B {blocks} blocks; round stages "
+              "ms/img " + json.dumps({k: round(v, 3) for k, v in
+                                      per_img.items()})
+              + f" ({sum(per_img.values()):.1f} in all); the learner's "
+              f"round stage (checkpoint, twin calibration, sweep) "
+              f"{run_stages['round'] * 1e3 / n:.1f} ms/img; run {wall:.1f} "
+              f"s; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+              f"{card}", flush=True)
+        # the float round on the same weights, into its own mask store
+        fcfg = cfg.clone()
+        fcfg.defrost()
+        fcfg.SAVE_DIR = str(root / "out" / "sweep_float")
+        fmodel = build_segmentor(fcfg, device=DEVICE)
+        fmodel.load_state_dict(load_state_dict_file(
+            str(Path(cfg.SAVE_DIR) / "model_before_round_1.ckpt")),
+            strict=True)
+        DatasetCatalog.init_mask(fcfg)
+        mask_cache.clear()
+        fstages = {}
+        fstats = region_selection(fcfg, fmodel, build_active_loader(fcfg), 1,
+                                  device=DEVICE, stage_seconds=fstages)
+        torch.cuda.synchronize()
+        shared = labelled = 0
+        for entry, fentry in zip(
+                learner.active_loader.dataset.data_list,
+                build_active_loader(fcfg).dataset.data_list):
+            a = load_mask_png(entry["label_mask"]) != 255
+            b = load_mask_png(fentry["label_mask"]) != 255
+            shared += int((a & b).sum())
+            labelled += int(b.sum())
+        fper = {k: v / n * 1e3 for k, v in sorted(fstages.items())}
+        print(f"(4) float round on the same weights: {fstats}; stages "
+              "ms/img " + json.dumps({k: round(v, 3) for k, v in
+                                      fper.items()})
+              + f" ({sum(fper.values()):.1f} in all); int8 / float forward "
+              f"{per_img['forward'] / fper['forward']:.3f}; "
+              f"{shared / max(labelled, 1):.4f} of the float round's "
+              "labelled pixels labelled by the int8 round too", flush=True)
+        del learner, twin, fmodel, sweep_model, rounds
+        release(torch)
+    report["int8_conv"]["launches"] = launches_total
+
+
 KERNELS = ("greedy_picks", "radius_map", "dilated_conv3x3",
-           "dilated_conv3x3_wgrad")
+           "dilated_conv3x3_wgrad", "int8_conv")
 
 
 def main() -> int:
@@ -2272,15 +2788,18 @@ def main() -> int:
     kernels.load()
 
     gen = torch.Generator(device=DEVICE).manual_seed(args.seed)
-    report = {}
-    phase_radius(torch, gen, report)
-    phase_select(torch, gen, report)
-    phase_conv(torch, gen, report)
-    phase_slice(torch, args, report)
-    phase_train(torch, args, report)
-    phase_protocols(torch, args, report)
-    phase_families(torch, args, report)
-    phase_acdc(torch, args, report)
+    with tempfile.TemporaryDirectory() as work:
+        # checkpoints one phase writes and a later one reads
+        report = {"work": Path(work)}
+        phase_radius(torch, gen, report)
+        phase_select(torch, gen, report)
+        phase_conv(torch, gen, report)
+        phase_slice(torch, args, report)
+        phase_train(torch, args, report)
+        phase_protocols(torch, args, report)
+        phase_families(torch, args, report)
+        phase_acdc(torch, args, report)
+        phase_int8(torch, args, report)
     print(json.dumps({"kernels": [report[k] for k in KERNELS]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

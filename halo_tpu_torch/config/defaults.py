@@ -97,9 +97,8 @@ _C.PROTOCOL = "source_target"
 # identical to the reference recipes unless explicitly overridden).
 # ---------------------------------------------------------------------------
 _C.TPU = CN()
-# In the PyTorch port, TPU.PALLAS_SELECTION, STENCIL_TRAIN, CONV_WGRAD,
-# FUSED_UPSAMPLE and the QUANT_* keys have no effect (QUANT_EVAL and
-# QUANT_SWEEP True raise: int8 is not ported): greedy selection
+# In the PyTorch port, TPU.PALLAS_SELECTION, STENCIL_TRAIN, CONV_WGRAD
+# and FUSED_UPSAMPLE have no effect: greedy selection
 # always runs the CUDA kernel on a GPU (active/cuda_select.py), the weight
 # gradient of a cuDNN conv is cuDNN's, and the acquisition round always
 # folds the upsample into the score. DENSE_CONV_MODE "pallas" routes the
@@ -166,24 +165,31 @@ _C.TPU.CONV_WGRAD = "gemm"
 # batches by size automatically at any ACTIVE_BATCH (in the port
 # data/build.py:SizeGroupedBatches, in the same order as the JAX loader),
 # so no manual fallback to 1 is needed.
-# JAX package: the post-training int8 (W8A8) eval path for the stride-1
-# ungrouped convs, after a calibration pass; it changes numerics
-# (per-tensor activation / per-channel weight symmetric quantization). Not
-# ported yet: True raises in the port's TestLearner.
+# Post-training int8 (W8A8) evaluation: builds the model with int8 layers
+# (models/layers.py:quant_eligible: the ungrouped stride-1 convs, strided
+# ones on inputs of at least 128 channels, dense layers of at least 128
+# input channels; the stem, depthwise convs and the logits/embedding
+# producers stay float), which need a calibration pass (ops/quant.py)
+# before they evaluate. It changes numerics (per-tensor activation and
+# per-channel weight symmetric quantization). In the port the k x k convs
+# run the int8 conv kernel (csrc/int8_conv.cu), the 1x1 convs and dense
+# layers torch._int_mm; a quantised build never runs kernel C.
 _C.TPU.QUANT_EVAL = False
 # Calibration batches fed through the model to set the PTQ activation
-# absmax (TestLearner._calibrate_quant) before a QUANT_EVAL eval. Batches
-# are drawn from the TARGET TRAIN split under the test transform (never
-# the eval split being scored).
+# absmax (TestLearner._calibrate_quant) before a QUANT_EVAL eval, and the
+# int8 sweep's twin before every round. TestLearner draws them from the
+# target train split under the test transform (DATASETS.TARGET_TRAIN, or
+# the train split of DATASETS.TEST when that is empty; never the eval
+# split being scored: the port raises where that split cannot be read).
 _C.TPU.QUANT_CALIB_BATCHES = 2
 # Force recalibration even when the restored checkpoint already carries
 # calibrated PTQ scales (default: restored calibration is kept).
 _C.TPU.QUANT_RECALIBRATE = False
-# JAX package: run the acquisition sweep's eval forward through the int8
-# W8A8 path, with a quantized twin of the model recalibrated from the
-# round's own target images before every round; the selection may change.
-# Training keeps the float path. Not ported yet: True raises in the port's
-# active learners.
+# Run the acquisition sweep's eval forward through the int8 W8A8 path: an
+# int8 twin of the model (built once) takes the training model's weights
+# and is recalibrated on the round's first QUANT_CALIB_BATCHES sweep
+# batches before every round; the selection may change. Training keeps
+# the float path (and kernel C under DENSE_CONV_MODE "pallas").
 _C.TPU.QUANT_SWEEP = False
 # In-training validation cadence in steps (the reference hardcodes
 # Lightning's val_check_interval=500, train.py:135); 0 disables.

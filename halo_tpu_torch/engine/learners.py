@@ -2,7 +2,8 @@
 ``halo_tpu/engine/learners.py``: ``Learner`` :49-413, ``SourceLearner``
 :416, ``_ActiveMixin`` :425-562, ``SourceFreeLearner`` :565,
 ``SourceTargetLearner`` :578, ``FullySupervisedLearner`` :588,
-``TestLearner`` :631-813 without int8, ``build_learner`` :825).
+``_CalibImages`` :607 (``CalibImages``), ``TestLearner`` :631-813,
+``build_learner`` :825).
 
 One device. A ``Learner`` owns the model (in train mode; FrozenBatchNorm
 stays frozen), the two-group SGD and its schedule, the loaders, the
@@ -16,10 +17,18 @@ stack:
   source_target -> SourceTargetLearner     (both loaders, rounds)
   fully_sup     -> FullySupervisedLearner  (both loaders, GT labels)
   test          -> TestLearner             (evaluation only)
+
+int8 (W8A8, ``ops/quant.py``): with ``TPU.QUANT_EVAL`` the learner's model
+is the int8 build, and ``TestLearner`` calibrates it on the target train
+split before it scores, unless the restored checkpoint is calibrated and
+``TPU.QUANT_RECALIBRATE`` is off. With ``TPU.QUANT_SWEEP`` the rounds'
+sweep forward runs an int8 twin of the training model, recalibrated every
+round; training stays float.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import signal
@@ -29,18 +38,22 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from torch.utils.data import DataLoader, Dataset
+
 from ..active.region_selection import region_selection
 from ..data.build import (build_active_loader, build_test_loader,
-                          build_train_loader)
+                          build_train_loader, build_transform, numpy_collate)
 from ..data.catalog import DatasetCatalog
 from ..data.datasets import TRAINID2NAME_16, TRAINID2NAME_19
 from ..device import resolve_device
 from ..models import build_segmentor
 from ..models.pretrained import load_pretrained_backbone
+from ..ops import quant as quant_ops
 from ..utils.metrics import miou_from_histograms, miou_star
 from .optim import build_optimizer
 from .state import load_module_params, restore_state, save_checkpoint
-from .steps import make_eval_step, make_rich_eval_step, make_train_step
+from .steps import (make_eval_step, make_forward, make_rich_eval_step,
+                    make_train_step)
 
 
 class Learner:
@@ -292,6 +305,19 @@ class Learner:
             self.model.train()
         return sums
 
+    def _calibrate(self, model, loader):
+        """Calibrate the int8 ``model`` (every ``amax`` from 0) on the
+        first ``TPU.QUANT_CALIB_BATCHES`` image batches of ``loader``,
+        through the eval forward."""
+        forward = make_forward(model)
+        batches = itertools.islice(
+            iter(loader), max(1, int(self.cfg.TPU.QUANT_CALIB_BATCHES)))
+        quant_ops.calibrate(
+            model, (torch.as_tensor(np.asarray(b["img"]), device=self.device)
+                    for b in batches),
+            forward=lambda x: forward(x, size=None))
+        quant_ops.assert_calibrated(model)
+
     def _eval_batch(self, batch):
         """A loader batch's image and label on the device."""
         img = torch.as_tensor(batch["img"]).to(self.device)
@@ -304,17 +330,32 @@ class _ActiveMixin:
     """Acquisition rounds at ``ACTIVE.SELECT_ITER``."""
 
     def _init_active(self):
-        if bool(self.cfg.TPU.QUANT_SWEEP):
-            raise NotImplementedError(
-                "TPU.QUANT_SWEEP: the int8 W8A8 acquisition sweep is not "
-                "ported yet (ROADMAP.md Queue 1 item 13)")
         self.active_loader = build_active_loader(self.cfg)
+        self.quant_twin = None  # the int8 sweep's model (TPU.QUANT_SWEEP)
         print(">>>>>>>>>>>>>>>> Init Mask >>>>>>>>>>>>>>>>", flush=True)
         DatasetCatalog.init_mask(self.cfg)
         self.active_iters = [int(x / self.num_devices)
                              for x in self.cfg.ACTIVE.SELECT_ITER]
         print(f"\nActive learning at iters: {self.active_iters}\n",
               flush=True)
+
+    def _sweep_model(self):
+        """The model of a round's sweep forward: the training model, or
+        with ``TPU.QUANT_SWEEP`` its int8 twin (``quant_twin``, built
+        once), given the training model's current weights and recalibrated
+        (every ``amax`` from 0) on the round's first
+        ``TPU.QUANT_CALIB_BATCHES`` sweep batches, since the frozen int8
+        weights are those of the last calibration."""
+        if not bool(self.cfg.TPU.QUANT_SWEEP):
+            return self.model
+        if self.quant_twin is None:
+            self.quant_twin = build_segmentor(
+                self.cfg, device=self.device, quant=True,
+                generator=torch.Generator().manual_seed(self.seed))
+        twin = self.quant_twin
+        twin.load_state_dict(self.model.state_dict())
+        self._calibrate(twin, self.active_loader)
+        return twin
 
     def on_batch_start(self, step: int) -> bool:
         if step not in self.active_iters or self.debug:
@@ -325,8 +366,9 @@ class _ActiveMixin:
         print(f"\n>>>> Active Round {self.active_round} >>>>", flush=True)
         self.model.eval()
         try:
-            stats = region_selection(self.cfg, self.model, self.active_loader,
-                                     self.active_round, device=self.device)
+            stats = region_selection(self.cfg, self._sweep_model(),
+                                     self.active_loader, self.active_round,
+                                     device=self.device)
         finally:
             self.model.train()
         print(f"  selected {stats['picked']} regions / "
@@ -384,20 +426,84 @@ class FullySupervisedLearner(SourceTargetLearner):
         return False
 
 
+class CalibImages(Dataset):
+    """Image-only view of a target train set for calibration: each image
+    under ``transform`` (the test transform) with an all-ignore label, so
+    the mask store is never read (a pure evaluation run has none)."""
+
+    def __init__(self, dataset, transform):
+        self.files = [entry["img"] for entry in dataset.data_list]
+        self.transform = transform
+
+    def __len__(self):
+        return len(self.files)
+
+    def __getitem__(self, index):
+        from PIL import Image
+        image = Image.open(self.files[index]).convert("RGB")
+        w, h = image.size
+        pair = np.full((h, w, 2), 255, np.uint8)
+        image, pair = self.transform(image, pair)
+        return {"img": image, "label": pair[..., 0].astype(np.int32)}
+
+
+def calibration_split(cfg) -> str:
+    """The set ``TestLearner`` calibrates on: ``DATASETS.TARGET_TRAIN``,
+    or when that is empty (the test recipes) the train split of the set
+    ``DATASETS.TEST`` names (``cityscapes_val`` -> ``cityscapes_train``)."""
+    return (cfg.DATASETS.TARGET_TRAIN
+            or cfg.DATASETS.TEST.rsplit("_", 1)[0] + "_train")
+
+
 class TestLearner(Learner):
     """Evaluation only: ``test()`` scores ``DATASETS.TEST`` with flip-TTA
     and, with ``TEST.SAVE_EMBED`` or ``TEST.VIZ_WRONG``, saves each image's
     tensors under ``SAVE_DIR/embed`` and plots wrong predictions under
-    ``SAVE_DIR/viz/wrong``."""
+    ``SAVE_DIR/viz/wrong``.
+
+    With ``TPU.QUANT_EVAL`` the model is the int8 build: after the weights
+    load, it keeps a calibration restored with them unless
+    ``TPU.QUANT_RECALIBRATE``, and else calibrates on
+    ``TPU.QUANT_CALIB_BATCHES`` batches of the target train split
+    (``calibration_split``) under the test transform. That split must be
+    readable: where the JAX package falls back to the eval split, the
+    port raises."""
 
     protocol = "test"
 
     def __init__(self, cfg, device=None):
-        if bool(cfg.TPU.QUANT_EVAL):
-            raise NotImplementedError(
-                "TPU.QUANT_EVAL: int8 W8A8 evaluation is not ported yet "
-                "(ROADMAP.md Queue 1 item 13)")
         super().__init__(cfg, device=device)
+        if bool(cfg.TPU.QUANT_EVAL):
+            try:
+                quant_ops.assert_calibrated(self.model)
+                calibrated = True
+            except ValueError:
+                calibrated = False
+            if not calibrated or bool(cfg.TPU.QUANT_RECALIBRATE):
+                self._calibrate_quant()
+
+    def _calib_loader(self):
+        """``TEST.BATCH_SIZE`` images a batch of the target train split,
+        in file order, under the test transform."""
+        cfg = self.cfg
+        name = calibration_split(cfg)
+        try:
+            dataset = DatasetCatalog.get(
+                name, "train", num_classes=cfg.MODEL.NUM_CLASSES, cfg=cfg)
+            if len(dataset) == 0:
+                raise ValueError("it lists no image")
+        except (OSError, RuntimeError, ValueError) as e:
+            raise RuntimeError(
+                f"TPU.QUANT_EVAL calibrates on the target train split "
+                f"{name!r}, which cannot be read ({e}); set "
+                "DATASETS.TARGET_TRAIN to a readable train split") from e
+        return DataLoader(CalibImages(dataset, build_transform(cfg, "test")),
+                          batch_size=int(cfg.TEST.BATCH_SIZE), shuffle=False,
+                          num_workers=int(cfg.TPU.LOADER_WORKERS),
+                          collate_fn=numpy_collate)
+
+    def _calibrate_quant(self):
+        self._calibrate(self.model, self._calib_loader())
 
     def train_loaders(self):
         raise RuntimeError("TestLearner does not train")

@@ -2,19 +2,28 @@
 
 A checkpoint is ``torch.save`` of ``{"state_dict", "optimizer", "step",
 "extra"}``: the model's ``state_dict`` under the upstream torch names, the
-optimizer's state, the step count and learner counters. The JAX package
+optimizer's state, the step count and learner counters; an int8 build's
+adds ``"quant"``, its calibration (``{layer name: {amax, w_int8,
+w_scale}}``, ``ops.quant.quant_state``). The JAX package
 reads ``blob["state_dict"]`` of such a file
 (``halo_tpu/models/port_torch.py:load_torch_checkpoint``), so a port
 checkpoint loads there too. ``restore_state`` brings a whole run back
 from one: model, optimizer, the schedule's position and the step.
+
+The calibration rides along as the JAX package's ``quant`` collection
+does (``halo_tpu/engine/state.py:29-153``): a quantised build restores it
+(``load_module_params`` for its module), a float build ignores it, and a
+calibration whose layers no longer match the build's warns and is
+dropped, which leaves the layers uncalibrated
+(``ops.quant.load_quant_state``).
 
 The readers also take the JAX package's checkpoints: ``flax.serialization``
 msgpack of ``{"step", "params", "frozen", "batch_stats", "opt_state",
 "quant", "extra"}``, decoded by a small msgpack reader of this module's
 own (maps, arrays, strings, bin, ints, floats, nil/bools, and the ext
 types that carry ndarrays and numpy scalars; bfloat16 leaves are widened
-to float32, which is exact). Their parameter trees go through
-``models.convert``; the two SGD groups' momentum traces become
+to float32, which is exact). Their parameter and ``quant`` trees go
+through ``models.convert``; the two SGD groups' momentum traces become
 ``torch.optim.SGD``'s momentum buffers.
 """
 
@@ -27,7 +36,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..models.convert import variables_to_state_dict
+from ..models.convert import quant_tree_to_state, variables_to_state_dict
+from ..ops.quant import load_quant_state, quant_state
 
 
 def save_checkpoint(model, path: str, optimizer=None, step: int = 0,
@@ -39,6 +49,9 @@ def save_checkpoint(model, path: str, optimizer=None, step: int = 0,
             "optimizer": (optimizer.state_dict()
                           if optimizer is not None else {}),
             "step": int(step), "extra": dict(extra or {})}
+    quant = quant_state(model)
+    if quant:
+        blob["quant"] = quant
     tmp = path + ".tmp"
     torch.save(blob, tmp)
     os.replace(tmp, path)
@@ -224,16 +237,23 @@ def jax_momentum_buffers(blob: Dict, model) -> Dict[str, torch.Tensor]:
 # Readers of either format
 # ---------------------------------------------------------------------------
 
+def _read_model(path: str):
+    """(state_dict, quant state) of a checkpoint file of either format;
+    the quant state is empty where the file has none."""
+    if is_jax_checkpoint(path):
+        blob = load_jax_checkpoint(path)
+        return jax_state_dict(blob), quant_tree_to_state(blob.get("quant"))
+    blob = load_checkpoint_blob(path)
+    if isinstance(blob, dict) and "state_dict" in blob:
+        return blob["state_dict"], blob.get("quant") or {}
+    return blob, {}
+
+
 def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` of a checkpoint: a port or upstream Lightning
     file (``blob["state_dict"]``), a plain ``state_dict``, or a JAX
     package checkpoint (converted to the port's names)."""
-    if is_jax_checkpoint(path):
-        return jax_state_dict(load_jax_checkpoint(path))
-    blob = load_checkpoint_blob(path)
-    if isinstance(blob, dict) and "state_dict" in blob:
-        blob = blob["state_dict"]
-    return blob
+    return _read_model(path)[0]
 
 
 def _restore_jax(model, optimizer, path: str) -> Dict:
@@ -241,6 +261,7 @@ def _restore_jax(model, optimizer, path: str) -> Dict:
     ``step`` and ``extra`` as a port blob would hold them."""
     blob = load_jax_checkpoint(path)
     model.load_state_dict(jax_state_dict(blob), strict=True)
+    load_quant_state(model, quant_tree_to_state(blob.get("quant")))
     buffers = jax_momentum_buffers(blob, model)
     momentum = any(g.get("momentum", 0) for g in optimizer.param_groups)
     if momentum and not buffers:
@@ -269,6 +290,7 @@ def restore_state(model, optimizer, scheduler, path: str) -> Dict:
         blob = load_checkpoint_blob(path)
         model.load_state_dict(blob["state_dict"], strict=True)
         optimizer.load_state_dict(blob["optimizer"])
+        load_quant_state(model, blob.get("quant"))
     step = int(blob["step"])
     scheduler.last_epoch = step
     for group, base, factor in zip(optimizer.param_groups,
@@ -284,10 +306,14 @@ def load_module_params(model, path: str, module: str) -> bool:
     reference filters its ``state_dict`` by prefix, from a port, upstream
     or JAX package checkpoint. Keys under the prefix must match the
     module's exactly; a checkpoint without the module leaves it as it is.
-    Returns whether the checkpoint held the module."""
+    An int8 build also takes the module's calibration from the file's
+    ``quant`` state, where it has one that matches its layers. Returns
+    whether the checkpoint held the module."""
     prefix = module + "."
-    found = {k[len(prefix):]: v for k, v in load_state_dict_file(path).items()
+    state_dict, quant = _read_model(path)
+    found = {k[len(prefix):]: v for k, v in state_dict.items()
              if k.startswith(prefix)}
     if found:
         getattr(model, module).load_state_dict(found, strict=True)
+        load_quant_state(getattr(model, module), quant, prefix)
     return bool(found)

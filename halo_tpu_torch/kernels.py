@@ -23,8 +23,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cuda"
-SOURCES = ("dilated_conv.cu", "dilated_conv_wgrad.cu", "radius.cu",
-           "select.cu")
+SOURCES = ("dilated_conv.cu", "dilated_conv_wgrad.cu", "int8_conv.cu",
+           "radius.cu", "select.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _lock = threading.Lock()
@@ -43,6 +43,7 @@ _SIGNATURES = {
     "halo_dilated_conv3x3_wgrad_bf16": (_P, _P, _P, _P, _LL, _I, _I, _I, _I,
                                         _I, _I, _P),
     "halo_dilated_conv3x3_wgrad_workspace": (_I, _I, _I, _I, _I, _I),
+    "halo_int8_conv": (_P, _P, _P, _P, _I) + (_I,) * 15 + (_P,),
 }
 _RESTYPES = {"halo_dilated_conv3x3_wgrad_workspace": _LL}
 

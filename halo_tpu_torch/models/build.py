@@ -8,6 +8,9 @@ heads take their input widths from the trunk, as flax infers them. A
 SegFormer head reads the four stage maps ``c1``..``c4`` that only a MiT
 trunk gives, so it is refused on a ResNet trunk when the model is built
 (the JAX package builds that pair and fails in its first forward).
+
+``quant`` builds the int8 evaluation model (``TPU.QUANT_EVAL``): an
+argument of the builders, where the JAX package sets a module global.
 """
 
 from __future__ import annotations
@@ -24,15 +27,16 @@ from .resnet import ARCHS, resnet_feature_extractor
 from .segformer import (MIT_ARCHS, SegFormerHead, SegFormerHyperHead,
                         mit_feature_extractor)
 
+# trunk factories: (cfg, quant) -> trunk
 BACKBONES: Dict[str, Callable[..., nn.Module]] = {
-    name: (lambda cfg, _n=name: resnet_feature_extractor(
+    name: (lambda cfg, quant, _n=name: resnet_feature_extractor(
         _n, freeze_bn=bool(cfg.MODEL.FREEZE_BN),
         dense_conv_mode=str(cfg.TPU.DENSE_CONV_MODE),
-        remat=bool(cfg.TPU.REMAT)))
+        remat=bool(cfg.TPU.REMAT), quant=quant))
     for name in ARCHS}
 BACKBONES.update({
-    name: (lambda cfg, _n=name: mit_feature_extractor(
-        _n, remat=bool(cfg.TPU.REMAT)))
+    name: (lambda cfg, quant, _n=name: mit_feature_extractor(
+        _n, remat=bool(cfg.TPU.REMAT), quant=quant))
     for name in MIT_ARCHS})
 
 
@@ -47,50 +51,58 @@ def _stages(ch):
     return [ch[f"c{s}"] for s in range(1, 5)]
 
 
-# head factories: (cfg, the trunk's map widths) -> head
+# head factories: (cfg, the trunk's map widths, quant) -> head; the v2
+# heads have no quantised layer
 HEADS: Dict[Tuple[str, bool], Callable[..., nn.Module]] = {
-    ("deeplabv2", False): lambda cfg, ch: ASPPv2Head(
+    ("deeplabv2", False): lambda cfg, ch, quant: ASPPv2Head(
         cfg.MODEL.NUM_CLASSES, in_channels=ch["out"]),
-    ("deeplabv2", True): lambda cfg, ch: ASPPv2HyperHead(
+    ("deeplabv2", True): lambda cfg, ch, quant: ASPPv2HyperHead(
         cfg.MODEL.NUM_CLASSES, cfg.MODEL.REDUCED_CHANNELS,
         float(cfg.MODEL.CURVATURE), in_channels=ch["out"]),
-    ("deeplabv3plus", False): lambda cfg, ch: SeparableASPPHead(
+    ("deeplabv3plus", False): lambda cfg, ch, quant: SeparableASPPHead(
         cfg.MODEL.NUM_CLASSES, cfg.MODEL.REDUCED_CHANNELS,
         hfr=bool(cfg.MODEL.HFR), freeze_bn=bool(cfg.MODEL.FREEZE_BN),
-        in_channels=ch["out"], low_channels=ch["low"]),
-    ("deeplabv3plus", True): lambda cfg, ch: SeparableASPPHyperHead(
+        in_channels=ch["out"], low_channels=ch["low"], quant=quant),
+    ("deeplabv3plus", True): lambda cfg, ch, quant: SeparableASPPHyperHead(
         cfg.MODEL.NUM_CLASSES, cfg.MODEL.REDUCED_CHANNELS,
         curvature=float(cfg.MODEL.CURVATURE), hfr=bool(cfg.MODEL.HFR),
         freeze_bn=bool(cfg.MODEL.FREEZE_BN), in_channels=ch["out"],
-        low_channels=ch["low"]),
-    ("segformer", False): lambda cfg, ch: SegFormerHead(
-        cfg.MODEL.NUM_CLASSES, _stages(ch)),
-    ("segformer", True): lambda cfg, ch: SegFormerHyperHead(
+        low_channels=ch["low"], quant=quant),
+    ("segformer", False): lambda cfg, ch, quant: SegFormerHead(
+        cfg.MODEL.NUM_CLASSES, _stages(ch), quant=quant),
+    ("segformer", True): lambda cfg, ch, quant: SegFormerHyperHead(
         cfg.MODEL.NUM_CLASSES, _stages(ch),
         reduced_channels=cfg.MODEL.REDUCED_CHANNELS,
-        curvature=float(cfg.MODEL.CURVATURE)),
+        curvature=float(cfg.MODEL.CURVATURE), quant=quant),
 }
 
 
-def build_feature_extractor(cfg) -> nn.Module:
-    """The trunk of ``MODEL.NAME``."""
+def _quant(cfg, quant: Optional[bool]) -> bool:
+    return bool(cfg.TPU.QUANT_EVAL) if quant is None else bool(quant)
+
+
+def build_feature_extractor(cfg, quant: Optional[bool] = None
+                            ) -> nn.Module:
+    """The trunk of ``MODEL.NAME``; ``quant`` (default
+    ``TPU.QUANT_EVAL``) builds its int8 layers."""
     _, backbone_name = cfg.MODEL.NAME.split("_", 1)
     if backbone_name not in BACKBONES:
         raise NotImplementedError(f"Unsupported backbone: {backbone_name}.")
-    return BACKBONES[backbone_name](cfg)
+    return BACKBONES[backbone_name](cfg, _quant(cfg, quant))
 
 
-def build_classifier(cfg, channels: Optional[Dict[str, int]] = None
-                     ) -> nn.Module:
+def build_classifier(cfg, channels: Optional[Dict[str, int]] = None,
+                     quant: Optional[bool] = None) -> nn.Module:
     """The head of ``MODEL.NAME`` and ``MODEL.HYPER`` for a trunk whose
     maps have the widths ``channels`` (default: a ResNet's, ``low`` 256
-    and ``out`` 2048). Raises ValueError for a SegFormer head on a trunk
-    without ``c1``..``c4``."""
+    and ``out`` 2048); ``quant`` as for the trunk. Raises ValueError for a
+    SegFormer head on a trunk without ``c1``..``c4``."""
     head_name, _ = cfg.MODEL.NAME.split("_", 1)
     key = (head_name, bool(cfg.MODEL.HYPER))
     if key not in HEADS:
         raise NotImplementedError(f"Unsupported classifier: {head_name}.")
-    return HEADS[key](cfg, channels or {"low": 256, "out": 2048})
+    return HEADS[key](cfg, channels or {"low": 256, "out": 2048},
+                      _quant(cfg, quant))
 
 
 class Segmentor(nn.Module):
@@ -118,7 +130,8 @@ def _compute_dtype(cfg) -> torch.dtype:
 
 
 def build_segmentor(cfg, device=None,
-                    generator: Optional[torch.Generator] = None) -> Segmentor:
+                    generator: Optional[torch.Generator] = None,
+                    quant: Optional[bool] = None) -> Segmentor:
     """Build the segmentor of ``MODEL.NAME`` and ``MODEL.HYPER`` on
     ``device`` (CUDA unless the caller passes another), in eval mode, with
     a seeded random init from ``generator`` (default: seeded with
@@ -129,13 +142,16 @@ def build_segmentor(cfg, device=None,
     ``TPU.DENSE_CONV_MODE "pallas"`` routes a ResNet trunk's eligible
     dilated 3x3 convs to kernel C; every other mode, and every MiT, keeps
     cuDNN. ``TPU.REMAT`` recomputes the trunk's blocks in the
-    backward pass. The learner calls ``.train()``. Pretrained weights are a
+    backward pass. ``quant`` (default ``TPU.QUANT_EVAL``) builds the int8
+    evaluation model: the same parameters, initialised alike, with
+    quantised layers that need ``ops.quant.calibrate`` before an int8
+    evaluation. The learner calls ``.train()``. Pretrained weights are a
     separate step (``models.pretrained``; ``models.convert`` carries JAX
     weights across).
     """
     dev = resolve_device(device)
-    trunk = build_feature_extractor(cfg)
-    model = Segmentor(trunk, build_classifier(cfg, trunk.channels))
+    trunk = build_feature_extractor(cfg, quant)
+    model = Segmentor(trunk, build_classifier(cfg, trunk.channels, quant))
     if generator is None:
         generator = torch.Generator().manual_seed(max(int(cfg.SEED), 0))
     model.feature_extractor.init_weights(generator)

@@ -14,6 +14,12 @@ dtype boundaries follow the JAX heads: convs run in the autocast dtype
 (bf16 under ``TPU.COMPUTE_DTYPE bfloat16``), so the Euclidean heads' logits
 come out in it, while HFR, ``expmap`` and the MLR run in float32 with
 autocast off.
+
+``quant`` (the int8 build, ``TPU.QUANT_EVAL``) makes the v3+ decoder's
+ConvBNReLU convs (the 1x1 branch, the global branch, the 3x3
+``bottleneck``, the ``shortcut``) and its separable convs' pointwise 1x1s
+``QuantConv``s. The depthwise convs, ``conv_reduce``, the class convs, the
+v2 ASPP convs, HFR's MLP and the MLR stay float.
 """
 
 from __future__ import annotations
@@ -84,23 +90,22 @@ class ASPPDecoder(nn.Module):
     widths of the trunk's ``out`` and ``low`` maps."""
 
     def __init__(self, freeze_bn: bool = False, in_channels: int = 2048,
-                 low_channels: int = 256):
+                 low_channels: int = 256, quant: bool = False):
         super().__init__()
         cin, low, out, short = in_channels, low_channels, 512, 48
+        opts = dict(freeze_bn=freeze_bn, quant=quant)
         self.parallel_branches = nn.ModuleList(
-            [ConvBNReLU(cin, out, 1, freeze_bn=freeze_bn)]
-            + [DepthwiseSeparableConv(cin, out, dilation=d,
-                                      freeze_bn=freeze_bn)
+            [ConvBNReLU(cin, out, 1, **opts)]
+            + [DepthwiseSeparableConv(cin, out, dilation=d, **opts)
                for d in (6, 12, 18)])
         # AdaptiveAvgPool2d at index 0, as in the upstream Sequential.
-        gb = ConvBNReLU(cin, out, 1, freeze_bn=freeze_bn)
+        gb = ConvBNReLU(cin, out, 1, **opts)
         self.global_branch = nn.Sequential(nn.AdaptiveAvgPool2d(1), *gb)
-        self.bottleneck = ConvBNReLU(5 * out, out, 3, padding=1,
-                                     freeze_bn=freeze_bn)
-        self.shortcut = ConvBNReLU(low, short, 1, freeze_bn=freeze_bn)
+        self.bottleneck = ConvBNReLU(5 * out, out, 3, padding=1, **opts)
+        self.shortcut = ConvBNReLU(low, short, 1, **opts)
         self.decoder = nn.Sequential(
-            DepthwiseSeparableConv(out + short, out, freeze_bn=freeze_bn),
-            DepthwiseSeparableConv(out, out, freeze_bn=freeze_bn))
+            DepthwiseSeparableConv(out + short, out, **opts),
+            DepthwiseSeparableConv(out, out, **opts))
 
     def forward(self, feats):
         low, x = feats["low"], feats["out"]
@@ -164,8 +169,8 @@ class SeparableASPPHyperHead(ASPPDecoder):
     def __init__(self, num_classes: int, reduced_channels: int = 64,
                  curvature: float = 1.0, hfr: bool = True,
                  freeze_bn: bool = False, in_channels: int = 2048,
-                 low_channels: int = 256):
-        super().__init__(freeze_bn, in_channels, low_channels)
+                 low_channels: int = 256, quant: bool = False):
+        super().__init__(freeze_bn, in_channels, low_channels, quant)
         self.curvature = curvature
         self.dropout = nn.Dropout2d(0.1)
         self.conv_reduce = nn.Conv2d(512, reduced_channels, 1, bias=True)
@@ -247,8 +252,9 @@ class SeparableASPPHead(ASPPDecoder):
 
     def __init__(self, num_classes: int, reduced_channels: int = 512,
                  hfr: bool = False, freeze_bn: bool = False,
-                 in_channels: int = 2048, low_channels: int = 256):
-        super().__init__(freeze_bn, in_channels, low_channels)
+                 in_channels: int = 2048, low_channels: int = 256,
+                 quant: bool = False):
+        super().__init__(freeze_bn, in_channels, low_channels, quant)
         self.old_decoder = reduced_channels == 512 and not hfr
         if self.old_decoder:
             self.decoder.append(nn.Dropout2d(0.1))

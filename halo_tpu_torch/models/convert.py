@@ -34,6 +34,12 @@ inverse of ``_mit_torch_to_flax`` in ``port_torch.py``:
 
 The SegFormer heads keep the JAX names (``linear_c<s>``, ``fuse_conv``,
 ``fuse_bn``, ``cls``, ``conv_reduce``); ``fuse_bn`` is a live BN.
+
+``quant_tree_to_state`` maps a calibrated ``quant`` collection (int8
+builds, ``TPU.QUANT_EVAL``) the same way, onto the port's layer names:
+``w_int8`` HWIO or (Cin, Cout) to the torch layout, ``amax`` and
+``w_scale`` as they are, ``k`` + ``v`` into the fused ``kv`` (one amax:
+they quantise the same input).
 """
 
 from __future__ import annotations
@@ -156,4 +162,47 @@ def variables_to_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
                 out[f"{module}.{name}.num_batches_tracked"] = torch.tensor(0)
     for key, parts in kv.items():
         out[key] = torch.from_numpy(np.concatenate([parts["k"], parts["v"]]))
+    return out
+
+
+def _layer_name(module: str, path: Tuple[str, ...], mit: bool) -> str:
+    if module == "feature_extractor":
+        return module + "." + (_mit_name(path) if mit
+                               else _backbone_name(path))
+    return module + "." + _head_name(path, old_decoder=False)
+
+
+def quant_tree_to_state(quant: Dict) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX ``quant`` collection (numpy leaves ``amax``, ``w_int8``,
+    ``w_scale`` per quantised layer) -> ``{port layer name: {'amax',
+    'w_int8', 'w_scale'}}``, as ``ops.quant.load_quant_state`` takes it."""
+    mit = any(k.startswith(("patch_embed", "block"))
+              for k in (quant or {}).get("feature_extractor", {}))
+    layers: Dict[str, Dict[str, Dict[str, np.ndarray]]] = {}
+    for full, value in _leaves(quant or {}):
+        module, path, leaf = full[0], full[1:-1], full[-1]
+        if leaf == "w_int8":
+            value = (value.transpose(3, 2, 0, 1) if value.ndim == 4
+                     else value.T)
+        part = path[-1] if path[-2:] in (("attn", "k"), ("attn", "v")) \
+            else ""
+        name = _layer_name(module, path, mit)
+        layers.setdefault(name, {}).setdefault(part, {})[leaf] = value
+    out = {}
+    for name, parts in layers.items():
+        if set(parts) == {"k", "v"}:
+            k, v = parts["k"], parts["v"]
+            parts = {"": {
+                "amax": np.maximum(k["amax"], v["amax"]),
+                "w_int8": np.concatenate([k["w_int8"], v["w_int8"]]),
+                "w_scale": np.concatenate([k["w_scale"], v["w_scale"]])}}
+        elif "" not in parts:
+            continue  # half a kv: the layer-set check reports it missing
+        entry = parts[""]
+        out[name] = {
+            "amax": torch.tensor(float(entry["amax"]), dtype=torch.float32),
+            "w_int8": torch.from_numpy(np.ascontiguousarray(
+                entry["w_int8"], dtype=np.int8)),
+            "w_scale": torch.from_numpy(np.array(entry["w_scale"],
+                                                 dtype=np.float32))}
     return out

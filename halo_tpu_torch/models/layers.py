@@ -2,12 +2,15 @@
 
 Port of the semantic layers of ``halo_tpu/models/layers.py``:
 FrozenBatchNorm, the live BatchNorm with torch momentum, ``make_norm``,
-ConvBNReLU, DepthwiseSeparableConv, and the dilated trunk conv that runs
-kernel C (``DilatedConv3x3``, the counterpart of ``PallasDilatedConv``).
-Other convolutions are ``nn.Conv2d`` (cuDNN on a GPU; ``groups=C`` for
-depthwise). The JAX package's other conv lowerings (stencils, shifted
-GEMMs, space-to-batch, GEMM weight grads, int8) are choices for the TPU's
-compiler, not semantics, and have no counterpart here.
+ConvBNReLU, DepthwiseSeparableConv, the dilated trunk conv that runs
+kernel C (``DilatedConv3x3``, the counterpart of ``PallasDilatedConv``),
+and the int8 (W8A8) evaluation layers ``QuantConv`` and ``QuantDense``
+with their build rules (``quant_eligible``, ``make_conv``, ``make_dense``;
+``ops/quant.py`` holds their arithmetic). Other convolutions are
+``nn.Conv2d`` (cuDNN on a GPU; ``groups=C`` for depthwise). The JAX
+package's other conv lowerings (stencils, shifted GEMMs, space-to-batch,
+GEMM weight grads) are choices for the TPU's compiler, not semantics, and
+have no counterpart here.
 
 Module and buffer names follow the upstream torch checkpoints, so a
 reference ``state_dict`` loads with ``strict=True``.
@@ -16,10 +19,12 @@ reference ``state_dict`` loads with ``strict=True``.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
 
+from ..ops import quant as quant_ops
 from ..ops.dilated_conv import dilated_conv3x3
 
 
@@ -54,29 +59,35 @@ def make_norm(freeze_bn: bool, features: int) -> nn.Module:
 
 class ConvBNReLU(nn.Sequential):
     """Conv -> norm -> ReLU; children 0, 1, 2 as in the upstream
-    ``nn.Sequential`` blocks (``bottleneck.0``, ``bottleneck.1``, ...)."""
+    ``nn.Sequential`` blocks (``bottleneck.0``, ``bottleneck.1``, ...).
+    ``quant``: the conv is a ``QuantConv`` (every ConvBNReLU is stride 1
+    and ungrouped)."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int,
-                 padding: int = 0, freeze_bn: bool = False):
+                 padding: int = 0, freeze_bn: bool = False,
+                 quant: bool = False):
         super().__init__(
-            nn.Conv2d(in_features, features, kernel_size, padding=padding,
-                      bias=False),
+            make_conv(in_features, features, kernel_size, padding=padding,
+                      quant=quant),
             make_norm(freeze_bn, features),
             nn.ReLU(inplace=True))
 
 
 class DepthwiseSeparableConv(nn.Module):
-    """Depthwise 3x3 (+BN+ReLU) then pointwise 1x1 (+BN+ReLU)."""
+    """Depthwise 3x3 (+BN+ReLU) then pointwise 1x1 (+BN+ReLU); with
+    ``quant`` the pointwise conv is a ``QuantConv`` and the depthwise one
+    stays float."""
 
     def __init__(self, in_features: int, out_features: int,
-                 dilation: int = 1, freeze_bn: bool = False):
+                 dilation: int = 1, freeze_bn: bool = False,
+                 quant: bool = False):
         super().__init__()
         self.depthwise_conv = nn.Conv2d(
             in_features, in_features, 3, padding=dilation,
             dilation=dilation, groups=in_features, bias=False)
         self.depthwise_bn = make_norm(freeze_bn, in_features)
-        self.pointwise_conv = nn.Conv2d(in_features, out_features, 1,
-                                        bias=False)
+        self.pointwise_conv = make_conv(in_features, out_features, 1,
+                                        quant=quant)
         self.pointwise_bn = make_norm(freeze_bn, out_features)
 
     def forward(self, x):
@@ -116,6 +127,128 @@ class DilatedConv3x3(nn.Conv2d):
                  if torch.is_autocast_enabled(kind) else x.dtype)
         return dilated_conv3x3(x.to(dtype), self.weight.to(dtype),
                                self.dilation[0])
+
+
+# ---------------------------------------------------------------------------
+# int8 W8A8 evaluation (TPU.QUANT_EVAL; halo_tpu/models/layers.py:436-676)
+# ---------------------------------------------------------------------------
+
+# Fewest output positions (per image, ceil(H/sh) * ceil(W/sw)) at which a
+# STRIDED QuantConv runs int8 in eval mode; below, it runs the float conv.
+# Decided per call from the input's size, as the JAX module decides per
+# trace; which layers hold quantisation state depends on the architecture
+# only.
+_MIN_STRIDED_POSITIONS = 2048
+
+
+def quant_eligible(quant: bool, stride, groups: int = 1,
+                   in_features: Optional[int] = None) -> bool:
+    """Whether a conv is built as a ``QuantConv``: the int8 build
+    (``quant``), ungrouped, and stride 1 or a strided conv whose input has
+    at least 128 channels (callers pass ``in_features`` for that).
+    Depthwise convs and every logits- or embedding-producing conv stay
+    float (their call sites never ask)."""
+    if not quant or groups != 1:
+        return False
+    if stride in (1, (1, 1)):
+        return True
+    return in_features is not None and in_features >= 128
+
+
+class QuantConv(quant_ops.QuantLayer, nn.Conv2d):
+    """``nn.Conv2d`` (same parameters and names) with an int8 W8A8
+    evaluation path. Its mode: training -> the float conv; calibrating
+    (``ops.quant.calibrate``) -> the float conv, plus ``amax`` = running
+    max|x| and the weight snapshot (``w_int8``, ``w_scale`` and, for a
+    conv that is not a 1x1 GEMM, the kernel's packed operand
+    ``w_packed``); otherwise int8 (``ops.quant.int8_conv``), its output
+    in the autocast dtype when autocast is on (else the input's), the
+    bias added after. A strided conv with fewer than
+    ``_MIN_STRIDED_POSITIONS`` output positions runs the float conv in
+    every mode."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        if self.groups != 1 or self.padding_mode != "zeros" or isinstance(
+                self.padding, str):
+            raise ValueError("QuantConv: ungrouped, zero-padded convs with "
+                             "numeric padding only")
+        self._init_quant()
+        self.register_buffer("w_packed", None, persistent=False)
+
+    def _gemm(self) -> bool:
+        return self.kernel_size == (1, 1) and self.padding == (0, 0)
+
+    def _snapshot(self, w_int8, w_scale):
+        super()._snapshot(w_int8, w_scale)
+        self.w_packed = None if self._gemm() else quant_ops.pack_weight(
+            self.w_int8)
+
+    def _small_strided(self, x) -> bool:
+        sh, sw = self.stride
+        positions = -(-x.shape[-2] // sh) * -(-x.shape[-1] // sw)
+        return (sh, sw) != (1, 1) and positions < _MIN_STRIDED_POSITIONS
+
+    def forward(self, x):
+        if self.training or self.calibrating or self._small_strided(x):
+            y = super().forward(x)
+            if self.calibrating and not self.training:
+                self.observe(x)
+            return y
+        dtype = self.out_dtype(x)
+        y = quant_ops.int8_conv(x, self.w_int8, self.w_scale, self.amax,
+                                self.stride, self.padding, self.dilation,
+                                out_dtype=dtype, packed=self.w_packed)
+        if self.bias is not None:
+            y = y + self.bias.to(dtype).view(1, -1, 1, 1)
+        return y
+
+
+class QuantDense(quant_ops.QuantLayer, nn.Linear):
+    """``nn.Linear`` (same parameters and names) with an int8 W8A8
+    evaluation path over the last axis; the modes of ``QuantConv``, the
+    int8 product by ``ops.quant.int8_dense``."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._init_quant()
+
+    def forward(self, x):
+        if self.training or self.calibrating:
+            y = super().forward(x)
+            if self.calibrating and not self.training:
+                self.observe(x)
+            return y
+        dtype = self.out_dtype(x)
+        y = quant_ops.int8_dense(x, self.w_int8, self.w_scale, self.amax,
+                                 out_dtype=dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(dtype)
+        return y
+
+
+def make_conv(in_features: int, features: int, kernel_size, stride=1,
+              padding=0, dilation=1, groups: int = 1, bias: bool = False,
+              quant: bool = False) -> nn.Conv2d:
+    """``nn.Conv2d``, or a ``QuantConv`` when ``quant_eligible`` holds
+    (every strided call site of the JAX package hands the rule its input
+    width, as this one does)."""
+    if quant_eligible(quant, stride, groups, in_features):
+        return QuantConv(in_features, features, kernel_size, stride=stride,
+                         padding=padding, dilation=dilation, bias=bias)
+    return nn.Conv2d(in_features, features, kernel_size, stride=stride,
+                     padding=padding, dilation=dilation, groups=groups,
+                     bias=bias)
+
+
+def make_dense(in_features: int, features: int, bias: bool = True,
+               quant: bool = False, min_cin: int = 128) -> nn.Linear:
+    """``nn.Linear``, or a ``QuantDense`` in an int8 build when the input
+    has at least ``min_cin`` channels (narrower layers stay float and hold
+    no quantisation state, as the JAX ``QuantDense``'s narrow path)."""
+    if quant and in_features >= min_cin:
+        return QuantDense(in_features, features, bias=bias)
+    return nn.Linear(in_features, features, bias=bias)
 
 
 # ---------------------------------------------------------------------------

@@ -17,8 +17,9 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .layers import (DilatedConv3x3, dilated_conv_eligible, init_conv_,
-                     make_norm, reset_norms_)
+from .layers import (DilatedConv3x3, QuantConv, dilated_conv_eligible,
+                     init_conv_, make_conv, make_norm, quant_eligible,
+                     reset_norms_)
 
 
 class Bottleneck(nn.Module):
@@ -26,34 +27,41 @@ class Bottleneck(nn.Module):
     residual add; the inner width is ``planes * base_width / 64 * groups``.
 
     ``dense_conv_mode`` "pallas" builds an eligible 3x3 as a
-    ``DilatedConv3x3`` (kernel C); any other mode keeps ``nn.Conv2d``."""
+    ``DilatedConv3x3`` (kernel C); any other mode keeps ``nn.Conv2d``.
+    ``quant`` (the int8 build) makes the 1x1s, the downsample and an
+    eligible 3x3 ``QuantConv``s; the int8 rule comes first, so a quantised
+    build never routes a conv to kernel C."""
 
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  dilation: int = 1, groups: int = 1, base_width: int = 64,
                  has_downsample: bool = False, freeze_bn: bool = False,
-                 dense_conv_mode: str = "conv"):
+                 dense_conv_mode: str = "conv", quant: bool = False):
         super().__init__()
         out_ch = planes * self.expansion
         width = int(planes * (base_width / 64.0)) * groups
-        self.conv1 = nn.Conv2d(inplanes, width, 1, bias=False)
+        self.conv1 = make_conv(inplanes, width, 1, quant=quant)
         self.bn1 = make_norm(freeze_bn, width)
-        if dilated_conv_eligible(dense_conv_mode, width, stride, dilation,
-                                 groups):
+        if quant_eligible(quant, stride, groups, in_features=width):
+            self.conv2 = QuantConv(width, width, 3, stride=stride,
+                                   padding=dilation, dilation=dilation,
+                                   bias=False)
+        elif dilated_conv_eligible(dense_conv_mode, width, stride, dilation,
+                                   groups):
             self.conv2 = DilatedConv3x3(width, width, dilation)
         else:
             self.conv2 = nn.Conv2d(width, width, 3, stride=stride,
                                    padding=dilation, dilation=dilation,
                                    groups=groups, bias=False)
         self.bn2 = make_norm(freeze_bn, width)
-        self.conv3 = nn.Conv2d(width, out_ch, 1, bias=False)
+        self.conv3 = make_conv(width, out_ch, 1, quant=quant)
         self.bn3 = make_norm(freeze_bn, out_ch)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = None
         if has_downsample:
             self.downsample = nn.Sequential(
-                nn.Conv2d(inplanes, out_ch, 1, stride=stride, bias=False),
+                make_conv(inplanes, out_ch, 1, stride=stride, quant=quant),
                 make_norm(freeze_bn, out_ch))
 
     def forward(self, x):
@@ -96,14 +104,15 @@ class ResNetFeatures(nn.Module):
     dilates, its first block keeps the previous dilation with stride 1 and
     the later blocks use the multiplied dilation. ``remat``
     (``TPU.REMAT``) recomputes each block's activations in the backward
-    pass when gradients are on.
+    pass when gradients are on. ``quant`` builds the int8 evaluation
+    layers (the stem stays float).
     """
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 23, 3),
                  replace_stride_with_dilation=(False, True, True),
                  groups: int = 1, base_width: int = 64,
                  freeze_bn: bool = False, dense_conv_mode: str = "conv",
-                 remat: bool = False):
+                 remat: bool = False, quant: bool = False):
         super().__init__()
         self.remat = remat
         # widths of the maps the heads read
@@ -130,7 +139,8 @@ class ResNetFeatures(nn.Module):
                     groups=groups, base_width=base_width,
                     has_downsample=first and (
                         stride != 1 or inplanes != planes * 4),
-                    freeze_bn=freeze_bn, dense_conv_mode=dense_conv_mode))
+                    freeze_bn=freeze_bn, dense_conv_mode=dense_conv_mode,
+                    quant=quant))
                 inplanes = planes * Bottleneck.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*layer))
 
@@ -189,13 +199,16 @@ ARCHS = {
 
 def resnet_feature_extractor(backbone_name: str, freeze_bn: bool = False,
                              dense_conv_mode: str = "conv",
-                             remat: bool = False) -> FeatureExtractor:
+                             remat: bool = False, quant: bool = False
+                             ) -> FeatureExtractor:
     """The trunk under ``feature_extractor.backbone``; ``dense_conv_mode``
     is ``TPU.DENSE_CONV_MODE`` ("pallas" routes the eligible dilated 3x3
-    convs to kernel C), ``remat`` is ``TPU.REMAT``."""
+    convs to kernel C), ``remat`` is ``TPU.REMAT``, ``quant`` the int8
+    build (``TPU.QUANT_EVAL``)."""
     if backbone_name not in ARCHS:
         raise NotImplementedError(f"Unsupported backbone: {backbone_name}.")
     sizes, groups, width = ARCHS[backbone_name]
     return FeatureExtractor(ResNetFeatures(
         stage_sizes=sizes, groups=groups, base_width=width,
-        freeze_bn=freeze_bn, dense_conv_mode=dense_conv_mode, remat=remat))
+        freeze_bn=freeze_bn, dense_conv_mode=dense_conv_mode, remat=remat,
+        quant=quant))

@@ -24,6 +24,16 @@ size does not divide by its reduction ratio. The attention is
 ``F.scaled_dot_product_attention`` (softmax in float32 inside the
 kernel; the JAX module rounds the scores to the compute dtype before its
 float32 softmax).
+
+``quant`` (the int8 build, ``TPU.QUANT_EVAL``) builds, as the JAX
+package's ``make_conv``/``make_dense`` do: the patch embeddings whose
+input has at least 128 channels (``pe3``, ``pe4``; ``pe4``'s small output
+grid runs float) as ``QuantConv``s, the Linears with at least 128 input
+channels (``q``, ``kv``, ``proj``, ``fc1``, ``fc2``, the decoder's
+``linear_c*``) as ``QuantDense``s, and the decoder's ``fuse_conv`` as a
+``QuantConv``. The ``sr`` convs, the depthwise convs, ``cls``,
+``conv_reduce`` and the MLR stay float. The fused ``kv`` quantises as the
+JAX ``k`` and ``v`` do: one input absmax, per-output-channel weights.
 """
 
 from __future__ import annotations
@@ -38,7 +48,7 @@ from torch import nn
 from ..ops import hyperbolic as hyp
 from ..ops.resize import resize_bilinear
 from .classifier import HyperMLR
-from .layers import reset_norms_, uniform_fan_in_
+from .layers import make_conv, make_dense, reset_norms_, uniform_fan_in_
 from .resnet import FeatureExtractor, _remat
 
 
@@ -81,10 +91,11 @@ class OverlapPatchEmbed(nn.Module):
     """A strided conv (kernel ``patch``, padding ``patch // 2``) then
     LayerNorm(1e-5); takes NCHW, returns channel-last."""
 
-    def __init__(self, in_channels: int, dim: int, patch: int, stride: int):
+    def __init__(self, in_channels: int, dim: int, patch: int, stride: int,
+                 quant: bool = False):
         super().__init__()
-        self.proj = nn.Conv2d(in_channels, dim, patch, stride=stride,
-                              padding=patch // 2)
+        self.proj = make_conv(in_channels, dim, patch, stride=stride,
+                              padding=patch // 2, bias=True, quant=quant)
         self.norm = LayerNorm(dim, eps=1e-5)
 
     def forward(self, x):
@@ -96,13 +107,14 @@ class EfficientAttention(nn.Module):
     reduced by ``sr_ratio`` (a kernel = stride = ``sr_ratio`` conv, then
     LayerNorm(1e-5)); channel-last in and out."""
 
-    def __init__(self, dim: int, heads: int, sr_ratio: int):
+    def __init__(self, dim: int, heads: int, sr_ratio: int,
+                 quant: bool = False):
         super().__init__()
         self.heads = heads
         self.sr_ratio = sr_ratio
-        self.q = nn.Linear(dim, dim)
-        self.kv = nn.Linear(dim, 2 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.q = make_dense(dim, dim, quant=quant)
+        self.kv = make_dense(dim, 2 * dim, quant=quant)
+        self.proj = make_dense(dim, dim, quant=quant)
         if sr_ratio > 1:
             self.sr = nn.Conv2d(dim, dim, sr_ratio, stride=sr_ratio)
             self.norm = LayerNorm(dim, eps=1e-5)
@@ -137,12 +149,12 @@ class DWConv(nn.Module):
 class MixFFN(nn.Module):
     """fc1 -> depthwise 3x3 -> exact GELU -> fc2."""
 
-    def __init__(self, dim: int, mlp_ratio: int = 4):
+    def __init__(self, dim: int, mlp_ratio: int = 4, quant: bool = False):
         super().__init__()
         hidden = dim * mlp_ratio
-        self.fc1 = nn.Linear(dim, hidden)
+        self.fc1 = make_dense(dim, hidden, quant=quant)
         self.dwconv = DWConv(hidden)
-        self.fc2 = nn.Linear(hidden, dim)
+        self.fc2 = make_dense(hidden, dim, quant=quant)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.dwconv(self.fc1(x))))
@@ -153,12 +165,12 @@ class MiTBlock(nn.Module):
     x + mlp(norm2(x)), LayerNorms at 1e-6."""
 
     def __init__(self, dim: int, heads: int, sr_ratio: int,
-                 mlp_ratio: int = 4):
+                 mlp_ratio: int = 4, quant: bool = False):
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=1e-6)
-        self.attn = EfficientAttention(dim, heads, sr_ratio)
+        self.attn = EfficientAttention(dim, heads, sr_ratio, quant)
         self.norm2 = LayerNorm(dim, eps=1e-6)
-        self.mlp = MixFFN(dim, mlp_ratio)
+        self.mlp = MixFFN(dim, mlp_ratio, quant)
 
     def forward(self, x):
         x = x + self.attn(self.norm1(x))
@@ -172,13 +184,14 @@ class MixVisionTransformer(nn.Module):
     ``c1``..``c4`` (strides 4 to 32) and the head contract's aliases
     ``low`` (``c1``) and ``out`` (``c4``). ``remat`` (``TPU.REMAT``)
     recomputes each block's activations in the backward pass when
-    gradients are on."""
+    gradients are on; ``quant`` builds the int8 evaluation layers."""
 
     def __init__(self, embed_dims: Sequence[int] = (64, 128, 320, 512),
                  depths: Sequence[int] = (3, 8, 27, 3),
                  heads: Sequence[int] = (1, 2, 5, 8),
                  sr_ratios: Sequence[int] = (8, 4, 2, 1),
-                 mlp_ratio: int = 4, remat: bool = False):
+                 mlp_ratio: int = 4, remat: bool = False,
+                 quant: bool = False):
         super().__init__()
         self.remat = remat
         self.channels = {f"c{s + 1}": int(d) for s, d in
@@ -188,9 +201,10 @@ class MixVisionTransformer(nn.Module):
         for s in range(4):
             self.add_module(f"patch_embed{s + 1}", OverlapPatchEmbed(
                 in_channels, embed_dims[s], 7 if s == 0 else 3,
-                4 if s == 0 else 2))
+                4 if s == 0 else 2, quant))
             self.add_module(f"block{s + 1}", nn.ModuleList(
-                MiTBlock(embed_dims[s], heads[s], sr_ratios[s], mlp_ratio)
+                MiTBlock(embed_dims[s], heads[s], sr_ratios[s], mlp_ratio,
+                         quant)
                 for _ in range(depths[s])))
             self.add_module(f"norm{s + 1}", LayerNorm(embed_dims[s],
                                                       eps=1e-6))
@@ -252,14 +266,17 @@ class _SegFormerDecoder(nn.Module):
     """The all-MLP decoder: a Linear to ``embed_dim`` on each stage map,
     bilinear (align corners) to ``c1``'s size, concatenated from ``c4``
     down to ``c1``, a bias-free 1x1 ``fuse_conv``, a live ``fuse_bn``
-    (momentum 0.1, eps 1e-5) and ReLU; element-wise dropout after it."""
+    (momentum 0.1, eps 1e-5) and ReLU; element-wise dropout after it.
+    ``quant``: the ``linear_c*`` of inputs at least 128 wide and
+    ``fuse_conv`` quantise."""
 
     def __init__(self, in_channels: Sequence[int], embed_dim: int,
-                 dropout: float):
+                 dropout: float, quant: bool = False):
         super().__init__()
         for s, cin in enumerate(in_channels):
-            self.add_module(f"linear_c{s + 1}", nn.Linear(cin, embed_dim))
-        self.fuse_conv = nn.Conv2d(4 * embed_dim, embed_dim, 1, bias=False)
+            self.add_module(f"linear_c{s + 1}",
+                            make_dense(cin, embed_dim, quant=quant))
+        self.fuse_conv = make_conv(4 * embed_dim, embed_dim, 1, quant=quant)
         self.fuse_bn = nn.BatchNorm2d(embed_dim, eps=1e-5, momentum=0.1)
         self.dropout = nn.Dropout(dropout)
 
@@ -298,8 +315,9 @@ class SegFormerHead(_SegFormerDecoder):
     ``(logits, fused)``, logits resized to ``size`` when given."""
 
     def __init__(self, num_classes: int, in_channels: Sequence[int],
-                 embed_dim: int = 768, dropout: float = 0.1):
-        super().__init__(in_channels, embed_dim, dropout)
+                 embed_dim: int = 768, dropout: float = 0.1,
+                 quant: bool = False):
+        super().__init__(in_channels, embed_dim, dropout, quant)
         self.cls = nn.Conv2d(embed_dim, num_classes, 1)
 
     def forward(self, feats, size: Optional[Tuple[int, int]] = None):
@@ -318,8 +336,9 @@ class SegFormerHyperHead(_SegFormerDecoder):
 
     def __init__(self, num_classes: int, in_channels: Sequence[int],
                  reduced_channels: int = 64, curvature: float = 1.0,
-                 embed_dim: int = 768, dropout: float = 0.1):
-        super().__init__(in_channels, embed_dim, dropout)
+                 embed_dim: int = 768, dropout: float = 0.1,
+                 quant: bool = False):
+        super().__init__(in_channels, embed_dim, dropout, quant)
         self.curvature = curvature
         self.conv_reduce = nn.Conv2d(embed_dim, reduced_channels, 1)
         self.conv_seg = HyperMLR(num_classes, reduced_channels, c=curvature)
@@ -334,7 +353,8 @@ class SegFormerHyperHead(_SegFormerDecoder):
         return out, embed
 
 
-def mit_feature_extractor(name: str, remat: bool = False):
+def mit_feature_extractor(name: str, remat: bool = False,
+                          quant: bool = False):
     """The MiT trunk ``name`` under ``feature_extractor.backbone``."""
-    return FeatureExtractor(MixVisionTransformer(remat=remat,
+    return FeatureExtractor(MixVisionTransformer(remat=remat, quant=quant,
                                                  **MIT_ARCHS[name]))

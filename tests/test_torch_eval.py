@@ -37,6 +37,7 @@ from halo_tpu_torch.engine.optim import build_optimizer
 from halo_tpu_torch.engine.state import save_checkpoint
 from halo_tpu_torch.engine.steps import make_rich_eval_step
 from halo_tpu_torch.models import build_segmentor, variables_to_state_dict
+from halo_tpu_torch.ops import quant
 from halo_tpu_torch.utils import visualize as port_visualize
 from halo_tpu_torch.utils.misc import parse_args
 from tests.test_torch_protocols import CONFIGS, record_calls, same_plot
@@ -218,22 +219,87 @@ def test_main_matches_jax_with_plots(mini_root, tmp_path, jax_globals,
             save_dir, "viz", "wrong", name))).shape == pixels.shape
 
 
-def test_quant_eval_raises(mini_root, tmp_path):
-    _, cfg = parse_args(_argv(mini_root, tmp_path, "q", resume="",
+def test_quant_test_learner_matches_jax(mini_root, tmp_path, jax_globals,
+                                       capsys):
+    """``TPU.QUANT_EVAL``: both TestLearners build the int8 model,
+    calibrate it on the target train split (2 batches, test transform)
+    and score the val split with the rich eval. The metrics within 0.1
+    points, the probabilities within 1e-3 and >= 99% of the predictions
+    equal (measured: 0.017 points, 1.5e-4, 99.5%; an int8 activation on a
+    rounding boundary may round the other way in one package, see
+    tests/test_torch_quant.py, and this random model's near-uniform
+    probabilities turn small changes into other argmaxes); the
+    artifacts' keys, dtypes and shapes the JAX package's."""
+    ckpt = _checkpoint(19, str(tmp_path / "model.ckpt"))
+    argv = _argv(mini_root, tmp_path, "port", resume=ckpt,
+                 **{"TEST.SAVE_EMBED": True, "TPU.QUANT_EVAL": True,
+                    "DATASETS.TARGET_TRAIN": "cityscapes_train"})
+    jcfg, want = _jax_test(argv)
+    _, cfg = parse_args(argv)
+    learner = TestLearner(cfg, device="cpu")
+    assert quant.quant_layers(learner.model)
+    quant.assert_calibrated(learner.model)
+    got = learner.test()
+    assert set(got) == set(want)
+    for k in ("mIoU", "mAcc", "aAcc"):
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=0.1,
+                                   err_msg=k)
+    names = sorted(os.listdir(os.path.join(cfg.SAVE_DIR, "embed")))
+    assert names == sorted(os.listdir(os.path.join(jcfg.SAVE_DIR, "embed")))
+    assert len(names) == 3
+    for name in names:
+        a = torch.load(os.path.join(cfg.SAVE_DIR, "embed", name))
+        b = torch.load(os.path.join(jcfg.SAVE_DIR, "embed", name))
+        assert {k: (v.dtype, v.shape) for k, v in a.items()} == {
+            k: (v.dtype, v.shape) for k, v in b.items()}
+        assert float((a["pred"] == b["pred"]).float().mean()) >= 0.99
+        torch.testing.assert_close(a["output"], b["output"], rtol=0,
+                                   atol=1e-3)
+
+
+def test_quant_calibration_needs_the_target_train_split(mini_root,
+                                                        tmp_path):
+    """Calibration reads the target train split, ``DATASETS.TARGET_TRAIN``
+    or, when empty, the train split of ``DATASETS.TEST``; where it cannot
+    be read the learner raises (the JAX package falls back to the eval
+    split there)."""
+    from halo_tpu_torch.engine.learners import calibration_split
+    ckpt = _checkpoint(19, str(tmp_path / "model.ckpt"))
+    _, cfg = parse_args(_argv(mini_root, tmp_path, "q", resume=ckpt,
                               **{"TPU.QUANT_EVAL": True}))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    assert cfg.DATASETS.TARGET_TRAIN == ""
+    assert calibration_split(cfg) == "cityscapes_train"
+    quant.assert_calibrated(TestLearner(cfg, device="cpu").model)
+    os.remove(mini_root / "cityscapes_train_list.txt")
+    with pytest.raises(RuntimeError, match="target train split"):
         TestLearner(cfg, device="cpu")
 
 
-def test_quant_sweep_raises(mini_root, tmp_path):
-    """``TPU.QUANT_SWEEP True`` (the int8 sweep) is refused by the active
-    learners until int8 is ported, never ignored."""
-    from halo_tpu_torch.engine.learners import build_learner
-    for recipe in ("gtav/source_target.yaml", "gtav/source_free.yaml"):
-        _, cfg = parse_args(_argv(mini_root, tmp_path, "q", recipe,
-                                  resume="", **{"TPU.QUANT_SWEEP": True}))
-        with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-            build_learner(cfg, device="cpu")
+def test_quant_test_learner_keeps_a_restored_calibration(
+        mini_root, tmp_path, monkeypatch, jax_globals):
+    """A checkpoint calibrated by the JAX package resumes calibrated: no
+    calibration pass unless ``TPU.QUANT_RECALIBRATE``; a calibration of
+    another layer set warns, is dropped, and the learner calibrates."""
+    from tests.test_torch_quant import _jax_checkpoint
+    calls = record_calls(monkeypatch, TestLearner, "_calibrate_quant")
+    extra = {"TPU.QUANT_EVAL": True}
+    good = tmp_path / "jax_calibrated.ckpt"
+    _jax_checkpoint(good)
+    drifted = tmp_path / "jax_drifted.ckpt"
+    _jax_checkpoint(drifted, drop="layer1_0")
+    for path, recal, want_calls in ((good, False, 0), (good, True, 1),
+                                    (drifted, False, 1)):
+        _, cfg = parse_args(_argv(mini_root, tmp_path, "q", resume=path,
+                                  **extra,
+                                  **{"TPU.QUANT_RECALIBRATE": recal}))
+        calls.clear()
+        if path == drifted:
+            with pytest.warns(UserWarning, match="quant state"):
+                learner = TestLearner(cfg, device="cpu")
+        else:
+            learner = TestLearner(cfg, device="cpu")
+        assert len(calls) == want_calls, (path.name, recal)
+        quant.assert_calibrated(learner.model)
 
 
 def test_default_weights_need_the_trunk_from_resume(mini_root, tmp_path,

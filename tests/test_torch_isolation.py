@@ -43,7 +43,7 @@ SLICE_MODULES = {"halo_tpu_torch.test", "halo_tpu_torch.train",
                  "halo_tpu_torch.models.classifier",
                  "halo_tpu_torch.models.segformer",
                  "halo_tpu_torch.data.acdc",
-                 "halo_tpu_torch.ops.prng",
+                 "halo_tpu_torch.ops.prng", "halo_tpu_torch.ops.quant",
                  "halo_tpu_torch.engine.learners",
                  "halo_tpu_torch.engine.state", "halo_tpu_torch.engine.steps",
                  "halo_tpu_torch.data.datasets",
@@ -94,11 +94,66 @@ def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch, tmp_path):
 
 def test_wrappers_refuse_other_devices():
     from halo_tpu_torch.active import cuda_radius, cuda_select
+    from halo_tpu_torch.ops import quant
     with pytest.raises(ValueError):
         cuda_select.greedy_picks(torch.zeros((4, 4), device="meta"),
                                  num_picks=1, mask_radius=1)
     with pytest.raises(ValueError):
         cuda_radius.radius_map(torch.zeros((4, 4, 8), device="meta"))
+    q = torch.zeros((1, 16, 4, 4), dtype=torch.int8, device="meta")
+    w = torch.zeros((16, 16, 3, 3), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError):
+        quant.int8_conv_kernel(q, w, torch.ones(16, device="meta"))
+    with pytest.raises(ValueError):
+        quant.int8_gemm(q.reshape(16, 16), w[:, :, 0, 0],
+                        torch.ones(16, device="meta"))
+
+
+def test_int8_paths_on_cuda_never_take_the_plain_versions(monkeypatch):
+    """The int8 wrappers' CUDA branch, driven with CPU tensors taken for
+    CUDA ones: the conv launches the kernel entry (a stand-in library
+    here) and raises on its error, the GEMM calls ``torch._int_mm``; the
+    plain versions are never called, and nothing falls back."""
+    from halo_tpu_torch import kernels
+    from halo_tpu_torch.ops import quant
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the CUDA path")
+
+    launched = []
+
+    class Library:
+        """Succeeds once, then returns cudaErrorIllegalAddress (700)."""
+
+        def halo_int8_conv(self, *args):
+            launched.append(args)
+            return 0 if len(launched) == 1 else 700
+
+    monkeypatch.setattr(quant, "_device_is_cuda", lambda t, name: True)
+    monkeypatch.setattr(quant, "int8_conv_plain", refuse)
+    monkeypatch.setattr(quant, "int8_gemm_plain", refuse)
+    monkeypatch.setattr(kernels, "load", Library)
+    monkeypatch.setattr(kernels, "current_stream", lambda device: 0)
+
+    def check(err, name):
+        if err:
+            raise RuntimeError(f"{name}: CUDA error {err}")
+
+    monkeypatch.setattr(kernels, "check", check)
+    x = torch.randn(1, 32, 6, 7)
+    w_int8, w_scale = quant.quantize_weight(torch.randn(48, 32, 3, 3))
+    n, g = quant.launches, quant.gemm_calls
+    y = quant.int8_conv(x, w_int8, w_scale, x.abs().max(), 1, 1, 1)
+    assert y.shape == (1, 48, 6, 7) and quant.launches == n + 1
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        quant.int8_conv(x, w_int8, w_scale, x.abs().max(), 1, 1, 1)
+    assert quant.launches == n + 1
+    y = quant.int8_conv(x, w_int8[:, :, :1, :1].contiguous(), w_scale,
+                        x.abs().max(), 2)
+    assert y.shape == (1, 48, 3, 4) and quant.gemm_calls == g + 1
+    with pytest.raises(TypeError):    # no float16 output on the card
+        quant.int8_conv(x, w_int8, w_scale, x.abs().max(), 1, 1, 1,
+                        out_dtype=torch.float16)
 
 
 def test_test_entry_point_needs_cuda_or_explicit_cpu(monkeypatch, tmp_path):

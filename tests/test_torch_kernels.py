@@ -315,3 +315,111 @@ def test_dilated_conv_refuses(gen):
             kernels.check(err, "halo_dilated_conv3x3_bf16")
         assert lib.halo_dilated_conv3x3_wgrad_workspace(1, 8, 8, c, co,
                                                         2) == -1
+
+
+def _int8_case(gen, b, c, co, h, w):
+    """int8 activations (channels_last) and weights over the full range,
+    and a float32 per-channel scale."""
+    xq = torch.randint(-127, 128, (b, c, h, w), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    xq = xq.contiguous(memory_format=torch.channels_last)
+    scale = torch.rand((co,), generator=gen, device="cuda") * 1e-4
+    return xq, scale
+
+
+@pytest.mark.parametrize("b,c,co,h,w,k,s,p,d", [
+    (1, 64, 64, 40, 80, 3, 1, 1, 1),       # layer1: 64-wide tiles
+    (2, 128, 128, 40, 80, 3, 2, 1, 1),     # layer2's first: stride 2
+    (2, 256, 256, 20, 40, 3, 1, 2, 2),     # layer3
+    (1, 512, 512, 20, 40, 3, 1, 4, 4),     # layer4
+    (1, 2560, 512, 10, 20, 3, 1, 1, 1),    # the ASPP bottleneck
+    (1, 128, 320, 21, 41, 3, 2, 1, 1),     # MiT pe3, odd H and W
+    (1, 48, 40, 9, 11, 3, 1, 1, 1),        # C, Co no multiple of a tile
+    (1, 20, 70, 7, 13, 3, 1, 2, 2),        # C % 16 != 0: padded channels
+    (1, 32, 33, 5, 9, 1, 1, 1, 1),         # 1x1 with padding, odd Co
+    (2, 64, 96, 13, 17, 5, 2, 3, 2),       # 5x5, stride 2, dilation 2
+    (1, 16, 16, 1, 1, 3, 1, 1, 1),         # one pixel
+    (1, 64, 64, 5, 7, 3, 1, 8, 8),         # d beyond H and W
+])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_int8_conv_kernel_matches_plain_bit_for_bit(gen, b, c, co, h, w, k,
+                                                    s, p, d, out_dtype):
+    """The int8 conv kernel against its plain version (float64 sums of
+    the int8 values, exact), the same bits in float32 and in bfloat16."""
+    from halo_tpu_torch.ops import quant
+    xq, scale = _int8_case(gen, b, c, co, h, w)
+    wq = torch.randint(-127, 128, (co, c, k, k), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    before = quant.launches
+    got = quant.int8_conv_kernel(xq, wq, scale, s, p, d, out_dtype)
+    want = quant.int8_conv_plain(xq, wq, scale, s, p, d, out_dtype)
+    torch.cuda.synchronize()
+    assert quant.launches == before + 1
+    assert got.shape == want.shape and got.dtype == out_dtype
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want)
+
+
+def test_int8_conv_layer_matches_plain_with_clipping(gen):
+    """``int8_conv`` end to end on float input: amax below max|x| clips;
+    amax = 0 gives the smallest scale (1e-12 / 127), so every activation
+    clips to +-127 and the outputs are finite and tiny; the kernel and the
+    plain version on the same quantised input give the same bits."""
+    from halo_tpu_torch.ops import quant
+    x = torch.randn((2, 64, 17, 23), generator=gen, device="cuda")
+    x = x.contiguous(memory_format=torch.channels_last)
+    wt = torch.randn((96, 64, 3, 3), generator=gen, device="cuda")
+    w_int8, w_scale = quant.quantize_weight(wt)
+    for amax in (float(x.abs().max()), 1.0, 0.0):
+        amax = torch.tensor(amax, device="cuda")
+        got = quant.int8_conv(x, w_int8, w_scale, amax, 1, 2, 2)
+        xq, sx = quant.quantize_act(x, amax)
+        want = quant.int8_conv_plain(xq, w_int8, sx * w_scale, 1, 2, 2)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        if float(amax) == 0.0:
+            assert bool(torch.isfinite(got).all())
+            assert float(got.abs().max()) < 1e-6
+
+
+@pytest.mark.parametrize("m,k,n", [(25600, 256, 1024), (2, 2048, 512),
+                                   (100, 20, 36), (4096, 320, 1280)])
+def test_int8_gemm_matches_plain(gen, m, k, n):
+    """``torch._int_mm`` with the wrapper's padding (rows to more than
+    16, K and N to multiples of 8) against the plain product, exact."""
+    from halo_tpu_torch.ops import quant
+    a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    scale = torch.rand((n,), generator=gen, device="cuda") * 1e-4
+    before = quant.gemm_calls
+    for dtype in (torch.float32, torch.bfloat16):
+        got = quant.int8_gemm(a, w, scale, dtype)
+        want = quant.int8_gemm_plain(a, w, scale, dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert quant.gemm_calls == before + 2
+
+
+def test_int8_conv_refuses(gen):
+    from halo_tpu_torch import kernels
+    from halo_tpu_torch.ops import quant
+    xq = torch.zeros((1, 32, 8, 8), device="cuda", dtype=torch.int8)
+    wq = torch.zeros((16, 32, 3, 3), device="cuda", dtype=torch.int8)
+    scale = torch.ones(16, device="cuda")
+    n = quant.launches
+    with pytest.raises(TypeError):        # no float activations
+        quant.int8_conv_kernel(xq.float(), wq, scale)
+    with pytest.raises(TypeError):        # no float16 output
+        quant.int8_conv_kernel(xq, wq, scale, out_dtype=torch.float16)
+    with pytest.raises(ValueError):       # Cin mismatch
+        quant.int8_conv_kernel(xq, wq[:, :16], scale)
+    assert quant.launches == n
+    y = torch.empty((1, 6, 6, 16), device="cuda")
+    err = kernels.load().halo_int8_conv(    # C % 16 != 0 at the C entry
+        xq.data_ptr(), wq.data_ptr(), scale.data_ptr(), y.data_ptr(), 0,
+        1, 8, 8, 24, 6, 6, 16, 3, 3, 1, 1, 0, 0, 1, 1,
+        kernels.current_stream(xq.device))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kernels.check(err, "halo_int8_conv")

@@ -211,6 +211,62 @@ def test_two_steps_match_jax(protocol, mini_root, tmp_path, no_dropout,
     assert os.path.exists(os.path.join(save_dir, "last.ckpt"))
 
 
+@pytest.mark.parametrize("protocol", ["source_target", "source_free"])
+def test_quant_sweep_round_matches_jax(protocol, mini_root, tmp_path,
+                                       no_dropout, capsys):
+    """``TPU.QUANT_SWEEP``: round 1 at step 0 sweeps with an int8 twin of
+    the model, calibrated on the round's first sweep batches, in both
+    packages from the same weights. The twin's calibration is the JAX
+    twin's (amax within 4e-6 relative, int8 weights and scales equal, as
+    tests/test_torch_quant.py holds them), the training model stays float,
+    and the round labels as many pixels an image as the JAX round with
+    >= 90% of them shared. Not byte-identical masks: an int8 activation
+    whose input sits on a rounding boundary rounds the other way in one
+    package and moves the logits by ~0.25% (test_torch_quant.py), enough
+    to move a greedy pick (measured: one 9-pixel region of the 3 images'
+    ~300 labelled pixels, source_target)."""
+    from halo_tpu_torch.models.convert import quant_tree_to_state
+    from halo_tpu_torch.ops import quant
+    extra = {"TPU.QUANT_SWEEP": True, "SOLVER.NUM_ITER": 1,
+             "ACTIVE.VIZ_MASK": False}
+    jcfg = _jax_cfg(protocol, mini_root, tmp_path / "jax")
+    for key, value in extra.items():
+        node, leaf = key.rsplit(".", 1)
+        setattr(jcfg.get(node), leaf, value)
+    learner = jax_build_learner(jcfg)
+    init = os.path.join(tmp_path, "init.ckpt")
+    torch.save({"state_dict": variables_to_state_dict(jax.tree_util.tree_map(
+        np.asarray, learner.state.variables()))}, init)
+    # the JAX twin's calibration at step 0, as the round computes it
+    want = quant_tree_to_state(jax.tree_util.tree_map(
+        np.asarray, learner._sweep_model_state()[1].quant))
+    learner.fit(val_interval=0)
+
+    mask_cache.clear()
+    port = train.main(_argv(protocol, mini_root, tmp_path, "port",
+                            resume=init, **extra), device="cpu")
+    assert port.protocol == protocol and port.active_round == 2
+    assert not quant.quant_layers(port.model)
+    quant.assert_calibrated(port.quant_twin)
+    got = quant.quant_state(port.quant_twin)
+    assert got.keys() == want.keys()
+    for layer in got:
+        assert torch.equal(got[layer]["w_int8"], want[layer]["w_int8"])
+        assert torch.equal(got[layer]["w_scale"], want[layer]["w_scale"])
+        np.testing.assert_allclose(got[layer]["amax"], want[layer]["amax"],
+                                   rtol=4e-6, err_msg=layer)
+    masks = os.path.join("gtMask", "train")
+    names = sorted(_files(os.path.join(jcfg.SAVE_DIR, masks)))
+    assert names == sorted(_files(os.path.join(tmp_path, "port", masks)))
+    assert len(names) == 3
+    for name in names:
+        a = _png(os.path.join(tmp_path, "port", masks, name)) != 255
+        b = _png(os.path.join(jcfg.SAVE_DIR, masks, name)) != 255
+        print(f"{name}: {int(a.sum())} labelled pixels (JAX {int(b.sum())}),"
+              f" {int((a & b).sum())} shared")
+        assert a.sum() == b.sum() > 0 and (a & b).sum() >= 0.9 * b.sum()
+
+
 @pytest.mark.parametrize("protocol", sorted(RECIPES))
 def test_build_learner_dispatches(protocol, mini_root, tmp_path):
     _, cfg = parse_args(_argv(protocol, mini_root, tmp_path, protocol,
