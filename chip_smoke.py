@@ -101,35 +101,40 @@ Phases, each of which fails the run (non-zero exit) on any error:
              backward of segformer_mitb4 at 2x640x1280, with and without
              TPU.REMAT: the median of 3 steps, and the device's busy time
              in a fourth under torch.profiler.
- 10. int8    int8 (W8A8) evaluation and the int8 sweep: (1) the int8 conv
-             kernel (csrc/int8_conv.cu) bit for bit against its plain
-             version (float64 sums of the int8 values) at the path's shapes
-             (R101 at a 640x1280 input: layer1 3x3 64, layer2's 3x3 128
-             stride 2 and d=1, layer3 256 d=2, layer4 512 d=4, the ASPP
-             bottleneck 2560->512; MiT-B4's pe3 3x3 stride 2 128->320) at
-             B = 2 (the test entry's flip pair) and 4 (the sweep), bf16
-             and f32 out, and at edge cases (odd H and W, channels no
-             multiple of the tile or of 16, a padded 1x1, 5x5, amax below
-             max|x| and 0); the torch._int_mm GEMMs against their plain
-             product; times kernel, plain version and cuDNN's bf16 conv
-             with the bound; (2) halo_tpu_torch.test.main on
+ 10. int8    int8 (W8A8) evaluation and the int8 sweep, every quantised
+             layer kernel Q (the activation quantise, csrc/int8_quant.cu)
+             then kernel I (the int8 conv, csrc/int8_conv.cu): (1) Q and I
+             bit for bit against their plain versions (float64 sums of the
+             int8 values) at the path's shapes (R101 at a 640x1280 input:
+             layer1 3x3 64, layer2's 3x3 128 stride 2 and d=1, layer3 256
+             d=2, layer4 512 d=4, the ASPP bottleneck 2560->512; MiT-B4's
+             pe3 3x3 stride 2 128->320) at B = 2 (the test entry's flip
+             pair) and 4 (the sweep), bf16 and f32 out, at the one-tap
+             GEMMs of the 1x1 convs and dense layers (M = 2 included), on
+             the ASPP bottleneck's concatenated input (not channels-last)
+             and at edge cases (odd H and W, channels no multiple of the
+             tile or of 16, a padded 1x1, 5x5, 4x4 stride 4, amax below
+             max|x| and 0); times I beside its bound, its plain version and
+             cuDNN's bf16 conv (k x k) or torch._int_mm + dequant (GEMMs),
+             and Q beside its bound; (2) halo_tpu_torch.test.main on
              configs/gtav/test.yaml with TPU.QUANT_EVAL True and
              TEST.SAVE_EMBED on phase train's last.ckpt over 2 val images,
-             calibrated on the target train split: int8 kernel and
-             torch._int_mm launches as the eligibility rule counts them,
-             kernel C 0, kernel B 1 a batch, the rich radius map against
-             the plain dist0, then the float entry on the same checkpoint
-             (mIoU, ms/img and the share of pixels predicted alike); (3)
-             the same on configs/acdc/test.yaml with phase acdc's
-             last.ckpt (segformer_mitb4); (4) train.main on
+             calibrated on the target train split: Q and I launches 2 a
+             quantised layer as the eligibility rule counts them,
+             torch._int_mm 0, layout copies 0, kernel C 0, kernel B 1 a
+             batch, the rich radius map against the plain dist0, then the
+             float entry on the same checkpoint (mIoU, ms/img and the
+             share of pixels predicted alike); (3) the same on
+             configs/acdc/test.yaml with phase acdc's last.ckpt
+             (segformer_mitb4); (4) train.main on
              configs/gtav/source_target.yaml with TPU.QUANT_SWEEP True and
              TPU.DENSE_CONV_MODE pallas, round 1 at step 0 and 2 steps:
              2331 picks an image from the int8 twin, masks and indicators,
-             launches (A 2, B 64, the int8 kernel in the sweep, C in the
-             steps), every twin amax > 0, the round's stages, then a float
-             round on the same weights (stages and the share of its
-             labelled pixels the int8 round labelled). Every earlier phase
-             runs at its full depth.
+             launches (A 2, B 64, Q and I in the sweep, C in the steps),
+             every twin amax > 0, the round's stages, then a float round
+             on the same weights (stages and the share of its labelled
+             pixels the int8 round labelled). Every earlier phase runs at
+             its full depth.
 
 Prints the kernels JSON line, the card's name and power limit
 (nvidia-smi), and as the last line
@@ -2264,8 +2269,8 @@ def phase_acdc(torch, args, report):
 
 
 INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core rate, H100 SXM
-# phase int8 (1): (label, Cin, Cout, H, W, kernel, stride, dilation) of the
-# int8 conv kernel's calls on the main path: R101 at a 640x1280 input
+# phase int8 (1): (label, Cin, Cout, H, W, kernel, stride, dilation) of
+# kernel I's k x k calls on the main path: R101 at a 640x1280 input
 # (layer1 at 160x320, the trunk at 80x160), MiT-B4's pe3 on its 80x160
 # stage-2 map; each at the test entry's flip pair and the sweep's batch
 INT8_CASES = (
@@ -2278,11 +2283,12 @@ INT8_CASES = (
     ("MiT-B4 pe3 3x3 s2 128->320", 128, 320, 80, 160, 3, 2, 1),
 )
 INT8_BATCHES = (2, 4)
-# (label, M, K, N) of the GEMM path (torch._int_mm) at a 640x1280 input
+# (label, M, K, N) of the 1x1 convs and dense layers (one-tap GEMMs of
+# kernel I) at a 640x1280 input
 INT8_GEMMS = (
     ("R101 layer3 conv1 1024->256, B 2", 2 * 80 * 160, 1024, 256),
     ("R101 layer3 conv3 256->1024, B 2", 2 * 80 * 160, 256, 1024),
-    ("ASPP global branch 2048->512, B 2 (rows padded)", 2, 2048, 512),
+    ("ASPP global branch 2048->512, B 2", 2, 2048, 512),
     ("decoder.0 pointwise 560->512, B 2", 2 * 160 * 320, 560, 512),
     ("MiT-B4 stage-1 fc2 256->64, B 2", 2 * 160 * 320, 256, 64),
     ("MiT-B4 stage-3 fc1 320->1280, B 2", 2 * 40 * 80, 320, 1280),
@@ -2290,165 +2296,244 @@ INT8_GEMMS = (
 
 
 def int8_conv_bound(b, c, co, h, w, ho, wo, k) -> tuple:
-    """bound_ms of one int8 conv: the int8 input read once, the weight
-    once, the bf16 output written once; 2 operations a multiply-add at the
-    int8 rate."""
+    """bound_ms of one call of kernel I: the int8 input read once, the
+    weight once, the bf16 output written once; 2 operations a
+    multiply-add at the int8 rate."""
     macs = b * ho * wo * co * k * k * c
     nbytes = b * h * w * c + co * k * k * c + b * ho * wo * co * 2
     return bound_ms(nbytes, 2 * macs, INT8_OPS_PER_S)
 
 
+def int8_quant_bound(x) -> tuple:
+    """bound_ms of one call of kernel Q: ``x`` read once, the int8 NHWC
+    copy (channels padded to 16) written once."""
+    b, c, h, w = x.shape
+    nbytes = x.numel() * x.element_size() + b * h * w * (c + (-c % 16))
+    return bound_ms(nbytes, 0.0, INT8_OPS_PER_S)
+
+
+def int_mm_dequant(torch, a, w, scale, out_dtype):
+    """The library yardstick of kernel I's one-tap GEMMs (timed here, used
+    nowhere in the port): ``torch._int_mm`` (cuBLASLt's int8 GEMM) on
+    rows padded past 16 and K, N padded to multiples of 8, then the
+    dequant ``float32(sum) * scale`` cast to ``out_dtype``."""
+    import torch.nn.functional as F
+    m, k = a.shape
+    n = w.shape[0]
+    pk, pn = -k % 8, -n % 8
+    if pk or m <= 16:
+        a = F.pad(a, (0, pk, 0, max(0, 17 - m)))
+    if pk or pn:
+        w = F.pad(w, (0, pk, 0, pn))
+    y = torch._int_mm(a.contiguous(), w.contiguous().t())
+    return (y[:m, :n].float() * scale).to(out_dtype)
+
+
 def int8_kernel_checks(torch, gen, report):
-    """Phase int8 (1): the int8 conv kernel against its plain version, bit
-    for bit, at the path's shapes in both batches and at edge cases; the
-    GEMM path against its plain product; times kernel, plain version and
-    cuDNN's bf16 conv (channels_last) at each shape, with the bound."""
+    """Phase int8 (1): kernels Q and I against their plain versions, bit
+    for bit, at the path's shapes in both batches, on layouts Q meets and
+    at edge cases; times Q (beside its bound) and I (beside its bound,
+    its plain version, cuDNN's bf16 conv for the k x k convs and
+    torch._int_mm + dequant for the one-tap GEMMs)."""
     import torch.nn.functional as F
     from halo_tpu_torch.ops import quant
 
-    def case(b, c, co, h, w, k):
-        xq = torch.randint(-127, 128, (b, c, h, w), generator=gen,
-                           device=DEVICE, dtype=torch.int8)
-        xq = xq.contiguous(memory_format=torch.channels_last)
+    def weights(c, co, k):
         wq = torch.randint(-127, 128, (co, c, k, k), generator=gen,
                            device=DEVICE, dtype=torch.int8)
-        sc = torch.rand((co,), generator=gen, device=DEVICE) * 1e-3
-        return xq, wq, sc
+        w_scale = torch.rand((co,), generator=gen, device=DEVICE) * 1e-2
+        return wq, quant.pack_weight(wq), w_scale
 
-    # one small launch, synchronised at once: a fault shows here
-    xq, wq, sc = case(1, 64, 64, 9, 11, 3)
-    quant.int8_conv_kernel(xq, wq, sc, 1, 1, 1, torch.bfloat16)
+    def activations(b, c, h, w):
+        x = torch.randn((b, c, h, w), generator=gen, device=DEVICE) * 2
+        return x.to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+
+    amax = torch.tensor(3.0, device=DEVICE)
+    sx = quant.quantize_act(torch.zeros(1, device=DEVICE), amax)[1]
+    # one small launch of each, synchronised at once: a fault shows here
+    x = activations(1, 64, 9, 11)
+    wq, packed, w_scale = weights(64, 64, 3)
+    quant.int8_conv_kernel(quant.quantize_nhwc(x, amax), packed, w_scale,
+                           amax, 3, 1, 1, 1, torch.bfloat16)
     torch.cuda.synchronize()
-    print("int8: first kernel launch ran", flush=True)
+    print("int8: first launches of kernels Q and I ran", flush=True)
     worst, layer3 = 0.0, None
     for b in INT8_BATCHES:
         for label, c, co, h, w, k, s, d in INT8_CASES:
-            xq, wq, sc = case(b, c, co, h, w, k)
-            packed = quant.pack_weight(wq)
-            p = d * (k - 1) // 2
-            geo = (s, p, d)
-            got = quant.int8_conv_kernel(xq, wq, sc, *geo, torch.bfloat16,
-                                         packed)
-            got32 = quant.int8_conv_kernel(xq, wq, sc, *geo, torch.float32,
-                                           packed)
-            want32 = quant.int8_conv_plain(xq, wq, sc, *geo)
+            x = activations(b, c, h, w)
+            wq, packed, w_scale = weights(c, co, k)
+            geo = (s, d * (k - 1) // 2, d)
+            xq = quant.quantize_nhwc(x, amax)
+            got = quant.int8_conv_kernel(xq, packed, w_scale, amax, k, *geo,
+                                         torch.bfloat16)
+            got32 = quant.int8_conv_kernel(xq, packed, w_scale, amax, k,
+                                           *geo, torch.float32)
+            want_q = quant.quantize_nhwc_plain(x, amax)
+            want32 = quant.int8_conv_plain(
+                want_q[..., :c].permute(0, 3, 1, 2), wq, sx * w_scale, *geo)
             torch.cuda.synchronize()
-            if not (torch.equal(got, want32.to(torch.bfloat16))
+            if not (torch.equal(xq, want_q)
+                    and torch.equal(got, want32.to(torch.bfloat16))
                     and torch.equal(got32, want32)):
-                raise AssertionError(f"int8 kernel off its plain version at "
-                                     f"{label}, B {b}")
+                raise AssertionError(f"int8 kernels off their plain versions "
+                                     f"at {label}, B {b}")
             worst = max(worst, float((got32 - want32).abs().max()))
             ho, wo = got.shape[2:]
-            xb = torch.randn((b, c, h, w), generator=gen, device=DEVICE).to(
-                torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            del got, got32, want32, want_q
             wb = torch.randn((co, c, k, k), generator=gen, device=DEVICE).to(
                 torch.bfloat16).contiguous(memory_format=torch.channels_last)
-            del got, got32, want32
             with torch.no_grad():
                 ms = cuda_ms(torch, lambda i: quant.int8_conv_kernel(
-                    xq, wq, sc, *geo, torch.bfloat16, packed), 20)
+                    xq, packed, w_scale, amax, k, *geo, torch.bfloat16), 20)
                 plain = cuda_ms(torch, lambda i: quant.int8_conv_plain(
-                    xq, wq, sc, *geo, torch.bfloat16), 3, warmup=1)
+                    xq[..., :c].permute(0, 3, 1, 2), wq, sx * w_scale, *geo,
+                    torch.bfloat16), 3, warmup=1)
                 lib = cuda_ms(torch, lambda i: F.conv2d(
-                    xb, wb, stride=s, padding=p, dilation=d), 20)
+                    x, wb, stride=s, padding=geo[1], dilation=d), 20)
+                q_ms = cuda_ms(torch, lambda i: quant.quantize_nhwc(x, amax),
+                               20)
+                q_plain = cuda_ms(torch, lambda i: quant.quantize_nhwc_plain(
+                    x, amax), 5, warmup=1)
             b_ms, b_by = int8_conv_bound(b, c, co, h, w, ho, wo, k)
+            q_bound, _ = int8_quant_bound(x)
             tops = 2 * b * ho * wo * co * k * k * c / ms / 1e9
             print(f"int8 conv {label}, B {b}: ({b}, {c}, {h}, {w}) -> "
-                  f"({b}, {co}, {ho}, {wo}) bit-exact (bf16 and f32 out); "
-                  f"kernel {ms:.4f} ms ({tops:.1f} TOPS, {b_ms / ms:.0%} of "
-                  f"the bound), plain {plain:.4f} ms, cuDNN bf16 "
+                  f"({b}, {co}, {ho}, {wo}) bit-exact (Q; I bf16 and f32 "
+                  f"out); I {ms:.4f} ms ({tops:.1f} TOPS, {b_ms / ms:.0%} "
+                  f"of the bound), plain {plain:.4f} ms, cuDNN bf16 "
                   f"(channels_last) {lib:.4f} ms, bound {b_ms:.4f} ms "
-                  f"({b_by})", flush=True)
+                  f"({b_by}); Q (bf16 channels-last in) {q_ms:.4f} ms, "
+                  f"plain {q_plain:.4f} ms, bound {q_bound:.4f} ms (bytes, "
+                  f"{q_bound / q_ms:.0%})", flush=True)
             if layer3 is None and "layer3" in label:
-                layer3 = (ms, plain, b_ms, b_by, lib)
-            del xq, wq, sc, xb, wb, packed
+                layer3 = (ms, plain, b_ms, b_by, lib, q_ms, q_plain, q_bound)
+            del x, xq, wq, wb, packed, w_scale
         release(torch)
     # edge cases: odd H and W, channels no multiple of the tile or of 16,
-    # a padded 1x1, a 5x5 with stride and dilation
+    # a padded 1x1, a 5x5 with stride and dilation, a stride-4 sr conv
     for geo in ((1, 128, 200, 81, 161, 3, 2, 1, 1),
                 (2, 48, 40, 13, 17, 3, 1, 2, 2),
                 (1, 20, 70, 9, 11, 3, 1, 1, 1),
                 (1, 64, 33, 7, 9, 1, 1, 1, 1),
-                (2, 64, 96, 13, 17, 5, 2, 3, 2)):
+                (2, 64, 96, 13, 17, 5, 2, 3, 2),
+                (2, 128, 128, 80, 160, 4, 4, 0, 1)):
         b, c, co, h, w, k, s, p, d = geo
-        xq, wq, sc = case(b, c, co, h, w, k)
-        got = quant.int8_conv_kernel(xq, wq, sc, s, p, d, torch.bfloat16)
-        want = quant.int8_conv_plain(xq, wq, sc, s, p, d, torch.bfloat16)
+        x = torch.randn((b, c, h, w), generator=gen, device=DEVICE)
+        wq, packed, w_scale = weights(c, co, k)
+        got = quant.int8_conv(x, wq, w_scale, amax, s, p, d, torch.bfloat16,
+                              packed)
+        xq, _ = quant.quantize_act(x, amax)
+        want = quant.int8_conv_plain(xq, wq, sx * w_scale, s, p, d,
+                                     torch.bfloat16)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
-            raise AssertionError(f"int8 kernel off its plain version at "
+            raise AssertionError(f"int8 kernels off their plain versions at "
                                  f"edge case {geo}")
-    print("int8 conv kernel: bit-exact at the edge cases (odd H and W; Co "
-          "200, 40, 70, 33; C 48, 20; a padded 1x1; 5x5 stride 2 "
-          "dilation 2)", flush=True)
+    print("int8 kernels: bit-exact at the edge cases (odd H and W; Co 200, "
+          "40, 70, 33; C 48, 20; a padded 1x1; 5x5 stride 2 dilation 2; "
+          "4x4 stride 4; float32 NCHW input)", flush=True)
+    # Q on the ASPP bottleneck's input as the model makes it: the
+    # concatenation of the broadcast global branch and four channels-last
+    # branches (not channels-last), read as it is
+    parts = [activations(2, 512, 80, 160) for _ in range(4)]
+    pooled = torch.randn((2, 512, 1, 1), generator=gen, device=DEVICE)
+    x = torch.cat([pooled.to(torch.bfloat16).expand(-1, -1, 80, 160)]
+                  + parts, dim=1)
+    del parts
+    got = quant.quantize_nhwc(x, amax)
+    torch.cuda.synchronize()
+    if not torch.equal(got, quant.quantize_nhwc_plain(x, amax)):
+        raise AssertionError("kernel Q off its plain version on the ASPP "
+                             "concatenation")
+    ms = cuda_ms(torch, lambda i: quant.quantize_nhwc(x, amax), 20)
+    q_bound, _ = int8_quant_bound(x)
+    print(f"int8 Q on the ASPP concatenation (2, 2560, 80, 160) bf16, "
+          f"strides {tuple(x.stride())}: bit-exact; {ms:.4f} ms, bound "
+          f"{q_bound:.4f} ms (bytes, {q_bound / ms:.0%})", flush=True)
+    del x, got
     # float input clipped beyond amax, and amax = 0, through int8_conv
-    x = torch.randn((2, 256, 80, 160), generator=gen, device=DEVICE)
-    x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    x = activations(2, 256, 80, 160)
     w_int8, w_scale = quant.quantize_weight(torch.randn(
         (256, 256, 3, 3), generator=gen, device=DEVICE))
-    for amax in (float(x.float().abs().max()) * 0.25, 0.0):
-        amax = torch.tensor(amax, device=DEVICE)
-        got = quant.int8_conv(x, w_int8, w_scale, amax, 1, 2, 2,
+    for a in (float(x.float().abs().max()) * 0.25, 0.0):
+        a = torch.tensor(a, device=DEVICE)
+        got = quant.int8_conv(x, w_int8, w_scale, a, 1, 2, 2,
                               torch.bfloat16)
-        xq, sx = quant.quantize_act(x, amax)
-        want = quant.int8_conv_plain(xq, w_int8, sx * w_scale, 1, 2, 2,
+        xq, sxa = quant.quantize_act(x, a)
+        want = quant.int8_conv_plain(xq, w_int8, sxa * w_scale, 1, 2, 2,
                                      torch.bfloat16)
         torch.cuda.synchronize()
         clipped = float((xq.abs() == 127).float().mean())
         if not (torch.equal(got, want) and bool(torch.isfinite(got).all())):
-            raise AssertionError(f"int8_conv off at amax {float(amax)}")
+            raise AssertionError(f"int8_conv off at amax {float(a)}")
         print(f"int8_conv on a bf16 (2, 256, 80, 160) input, amax "
-              f"{float(amax):.4f}: bit-exact, {clipped:.4f} of the "
+              f"{float(a):.4f}: bit-exact, {clipped:.4f} of the "
               "activations at +-127", flush=True)
     for label, m, k, n in INT8_GEMMS:
-        a = torch.randint(-127, 128, (m, k), generator=gen, device=DEVICE,
-                          dtype=torch.int8)
-        wg = torch.randint(-127, 128, (n, k), generator=gen, device=DEVICE,
-                           dtype=torch.int8)
-        sc = torch.rand((n,), generator=gen, device=DEVICE) * 1e-3
-        got = quant.int8_gemm(a, wg, sc, torch.bfloat16)
-        want = quant.int8_gemm_plain(a, wg, sc, torch.bfloat16)
+        x = (torch.randn((m, k), generator=gen, device=DEVICE) * 2).to(
+            torch.bfloat16)
+        wq, packed, w_scale = weights(k, n, 1)
+        xv = quant._channels_view(x)
+        xq = quant.quantize_nhwc(xv, amax)
+        got = quant.int8_conv_kernel(xq, packed, w_scale, amax, 1, 1, 0, 1,
+                                     torch.bfloat16)
+        a = quant.quantize_nhwc_plain(xv, amax).reshape(m, -1)[:, :k]
+        want = quant.int8_gemm_plain(a, wq[:, :, 0, 0], sx * w_scale,
+                                     torch.bfloat16)
+        lib_out = int_mm_dequant(torch, a, wq[:, :, 0, 0], sx * w_scale,
+                                 torch.bfloat16)
         torch.cuda.synchronize()
-        if not torch.equal(got, want):
+        got = got.permute(0, 2, 3, 1).reshape(m, n)
+        if not (torch.equal(xq.reshape(m, -1)[:, :k], a)
+                and torch.equal(got, want) and torch.equal(lib_out, want)):
             raise AssertionError(f"int8 GEMM off its plain version: {label}")
-        ms = cuda_ms(torch, lambda i: quant.int8_gemm(
-            a, wg, sc, torch.bfloat16), 20)
+        ms = cuda_ms(torch, lambda i: quant.int8_conv_kernel(
+            xq, packed, w_scale, amax, 1, 1, 0, 1, torch.bfloat16), 20)
+        lib = cuda_ms(torch, lambda i: int_mm_dequant(
+            torch, a, wq[:, :, 0, 0], sx * w_scale, torch.bfloat16), 20)
+        plain = cuda_ms(torch, lambda i: quant.int8_gemm_plain(
+            a, wq[:, :, 0, 0], sx * w_scale, torch.bfloat16), 3, warmup=1)
+        q_ms = cuda_ms(torch, lambda i: quant.quantize_nhwc(xv, amax), 20)
         b_ms, b_by = bound_ms(m * k + n * k + m * n * 2, 2 * m * n * k,
                               INT8_OPS_PER_S)
-        print(f"int8 GEMM {label} ({m}x{k} @ {k}x{n}): bit-exact; "
-              f"torch._int_mm + dequant {ms:.4f} ms, bound {b_ms:.4f} ms "
-              f"({b_by})", flush=True)
-    ms, plain, b_ms, b_by, lib = layer3
+        q_bound, _ = int8_quant_bound(xv)
+        print(f"int8 GEMM {label} ({m}x{k} @ {k}x{n}): bit-exact (Q; I; "
+              f"torch._int_mm agrees); I {ms:.4f} ms ({b_ms / ms:.0%} of the "
+              f"bound), torch._int_mm + dequant {lib:.4f} ms ({ms / lib:.2f}"
+              f"x), plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}); Q "
+              f"{q_ms:.4f} ms, bound {q_bound:.4f} ms", flush=True)
+    ms, plain, b_ms, b_by, lib, q_ms, q_plain, q_bound = layer3
     report["int8_conv"] = {
         "name": "int8_conv", "route": "cuda",
         "source": "halo_tpu_torch/csrc/int8_conv.cu",
         "replaces": "halo_tpu/ops/quant.py:81",
         "launches": 0, "max_abs_err": worst, "ms": ms, "plain_ms": plain,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+    report["int8_quant"] = {
+        "name": "int8_quant", "route": "cuda",
+        "source": "halo_tpu_torch/csrc/int8_quant.cu",
+        "replaces": "halo_tpu/ops/quant.py:68",
+        "launches": 0, "max_abs_err": 0.0, "ms": q_ms, "plain_ms": q_plain,
+        "bound_ms": q_bound, "bound_by": "bytes", "library_ms": None}
     release(torch)
 
 
-def int8_routes(torch, model, shapes) -> tuple:
-    """The eligibility rule's count for one forward of ``model``, given
-    the input (H, W) each QuantConv saw (``shapes``): (int8 kernel convs,
-    GEMM-path layers); a strided conv on a small grid runs float."""
+def int8_layers(torch, model, shapes) -> int:
+    """The quantised layers that run int8 in one forward of ``model``,
+    given the input (H, W) each QuantConv saw (``shapes``): every
+    QuantDense and every QuantConv but a strided one on a small grid
+    (which runs float). Each launches kernels Q and I once."""
     from halo_tpu_torch.models.layers import QuantConv, QuantDense
-    kernel = gemm = 0
-    for mod in model.modules():
-        if isinstance(mod, QuantDense):
-            gemm += 1
-        elif isinstance(mod, QuantConv) and not mod._small_strided(
-                torch.empty((1, 1) + shapes[mod], device="meta")):
-            if mod._gemm():
-                gemm += 1
-            else:
-                kernel += 1
-    return kernel, gemm
+    return sum(isinstance(mod, QuantDense) or (
+        isinstance(mod, QuantConv) and not mod._small_strided(
+            torch.empty((1, 1) + shapes[mod], device="meta")))
+        for mod in model.modules())
 
 
 def phase_int8(torch, args, report):
-    """int8 (W8A8) evaluation and the int8 sweep: (1) the int8 conv kernel
-    against its plain version; (2) the quantised R101 test entry on phase
+    """int8 (W8A8) evaluation and the int8 sweep: (1) kernels Q and I
+    against their plain versions; (2) the quantised R101 test entry on phase
     train's last.ckpt, then the float one; (3) the same for SegFormer-B4
     on phase acdc's last.ckpt; (4) the source_target recipe with
     TPU.QUANT_SWEEP, then a float round on the same weights. Launch
@@ -2474,14 +2559,24 @@ def phase_int8(torch, args, report):
     card = card_line()
     work = report["work"]
 
+    int_mm = torch._int_mm
+    int_mm_calls = [0]
+
+    def counted_int_mm(*a, **k):
+        int_mm_calls[0] += 1
+        return int_mm(*a, **k)
+
     def counts():
-        return {"int8_conv": quant.launches, "int_mm": quant.gemm_calls,
+        return {"int8_conv": quant.launches, "int8_quant":
+                quant.quant_launches, "int_mm": int_mm_calls[0],
+                "layout_copies": quant.layout_copies,
                 "fwd": dc.launches_fwd, "dx": dc.launches_dx,
                 "dk": dc.launches_dk, "radius_map": cuda_radius.launches,
                 "greedy_picks": cuda_select.launches}
 
     def zero_counts():
-        quant.launches = quant.gemm_calls = quant.layout_copies = 0
+        quant.launches = quant.quant_launches = quant.layout_copies = 0
+        int_mm_calls[0] = 0
         dc.launches_fwd = dc.launches_dx = dc.launches_dk = 0
         dc.layout_copies = 0
         cuda_radius.launches = cuda_select.launches = 0
@@ -2499,8 +2594,13 @@ def phase_int8(torch, args, report):
                 mod.register_forward_pre_hook(
                     lambda m, a: shapes.__setitem__(m, tuple(a[0].shape[-2:])))
 
-    launches_total = 0
-    with tempfile.TemporaryDirectory() as tmp:
+    launches_total = quant_total = 0
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.ExitStack() as restore:
+        # torch._int_mm counted while the int8 paths run: they call it 0
+        # times
+        torch._int_mm = counted_int_mm
+        restore.callback(setattr, torch, "_int_mm", int_mm)
         root = Path(tmp)
         data = root / "datasets"
         t0 = time.perf_counter()
@@ -2601,20 +2701,22 @@ def phase_int8(torch, args, report):
                 f"{part} int8 test", recipe, name + "_int8", str(ckpt),
                 "TPU.QUANT_EVAL", "True")
             quant.assert_calibrated(model)
-            kernel, gemm = int8_routes(torch, model, shapes)
+            layers = int8_layers(torch, model, shapes)
             n_conv_c = sum(isinstance(m, DilatedConv3x3)
                            for m in model.modules())
             expect(f"{part} int8 test", got, {
-                "int8_conv": 2 * kernel, "int_mm": 2 * gemm, "fwd": 0,
-                "dx": 0, "dk": 0, "radius_map": 2, "greedy_picks": 0})
-            if kernel <= 0 or n_conv_c:
-                raise AssertionError(f"{part}: {kernel} int8 kernel convs, "
+                "int8_conv": 2 * layers, "int8_quant": 2 * layers,
+                "int_mm": 0, "layout_copies": 0, "fwd": 0, "dx": 0,
+                "dk": 0, "radius_map": 2, "greedy_picks": 0})
+            if layers <= 0 or n_conv_c:
+                raise AssertionError(f"{part}: {layers} int8 layers, "
                                      f"{n_conv_c} kernel-C convs")
-            print(f"{part} int8 model: {kernel} k x k convs on the int8 "
-                  f"kernel and {gemm} layers on torch._int_mm a forward "
-                  "(one forward an image: the flip pair), "
-                  f"{quant.layout_copies} layout copies", flush=True)
+            print(f"{part} int8 model: {layers} quantised layers a forward "
+                  "(one forward an image: the flip pair), each kernel Q "
+                  "then kernel I: 2 launches a layer; torch._int_mm 0, "
+                  "layout copies 0", flush=True)
             launches_total += got["int8_conv"]
+            quant_total += got["int8_quant"]
             hold_rich_radius(f"{part} int8 test", r)
             del r, model, shapes
             release(torch)
@@ -2689,17 +2791,19 @@ def phase_int8(torch, args, report):
         with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
             w_in, h_in = cfg.INPUT.INPUT_SIZE_TEST
             twin(torch.zeros((1, 3, h_in, w_in), device=DEVICE))
-        kernel, gemm = int8_routes(torch, twin, shapes)
+        layers = int8_layers(torch, twin, shapes)
         batches = math.ceil(n / int(cfg.TPU.ACTIVE_BATCH))
         n_conv_c = sum(isinstance(m, DilatedConv3x3)
                        for m in learner.model.modules())
         blocks = got["radius_map"]
         expect("(4) int8 sweep", got, {
-            "int8_conv": batches * kernel, "int_mm": batches * gemm,
+            "int8_conv": batches * layers, "int8_quant": batches * layers,
+            "int_mm": 0, "layout_copies": 0,
             "fwd": 2 * n_conv_c * steps, "dx": 2 * n_conv_c * steps,
             "dk": 2 * n_conv_c * steps, "radius_map": n * 8,
             "greedy_picks": batches})
         launches_total += got["int8_conv"]
+        quant_total += got["int8_quant"]
         per_img = {k: v / n * 1e3 for k, v in sorted(stages.items())}
         print(f"(4) int8 sweep: {stats}; {n} masks and indicators written "
               f"and consistent; twin amax all > 0 (min {min(amax):.4g} over "
@@ -2745,10 +2849,11 @@ def phase_int8(torch, args, report):
         del learner, twin, fmodel, sweep_model, rounds
         release(torch)
     report["int8_conv"]["launches"] = launches_total
+    report["int8_quant"]["launches"] = quant_total
 
 
 KERNELS = ("greedy_picks", "radius_map", "dilated_conv3x3",
-           "dilated_conv3x3_wgrad", "int8_conv")
+           "dilated_conv3x3_wgrad", "int8_conv", "int8_quant")
 
 
 def main() -> int:

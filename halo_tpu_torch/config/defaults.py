@@ -171,9 +171,10 @@ _C.TPU.CONV_WGRAD = "gemm"
 # input channels; the stem, depthwise convs and the logits/embedding
 # producers stay float), which need a calibration pass (ops/quant.py)
 # before they evaluate. It changes numerics (per-tensor activation and
-# per-channel weight symmetric quantization). In the port the k x k convs
-# run the int8 conv kernel (csrc/int8_conv.cu), the 1x1 convs and dense
-# layers torch._int_mm; a quantised build never runs kernel C.
+# per-channel weight symmetric quantization). In the port every quantised
+# layer (k x k and 1x1 convs, dense layers) runs two kernels: the
+# activation quantise (csrc/int8_quant.cu), then the int8 conv
+# (csrc/int8_conv.cu); a quantised build never runs kernel C.
 _C.TPU.QUANT_EVAL = False
 # Calibration batches fed through the model to set the PTQ activation
 # absmax (TestLearner._calibrate_quant) before a QUANT_EVAL eval, and the

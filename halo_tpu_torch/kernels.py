@@ -24,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cuda"
 SOURCES = ("dilated_conv.cu", "dilated_conv_wgrad.cu", "int8_conv.cu",
-           "radius.cu", "select.cu")
+           "int8_quant.cu", "radius.cu", "select.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _lock = threading.Lock()
@@ -43,7 +43,9 @@ _SIGNATURES = {
     "halo_dilated_conv3x3_wgrad_bf16": (_P, _P, _P, _P, _LL, _I, _I, _I, _I,
                                         _I, _I, _P),
     "halo_dilated_conv3x3_wgrad_workspace": (_I, _I, _I, _I, _I, _I),
-    "halo_int8_conv": (_P, _P, _P, _P, _I) + (_I,) * 15 + (_P,),
+    "halo_int8_conv": (_P, _P, _P, _P, _P, _I) + (_I,) * 16 + (_F, _F, _P),
+    "halo_int8_quantize": (_P, _I, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL,
+                           _LL, _I, _F, _F, _P),
 }
 _RESTYPES = {"halo_dilated_conv3x3_wgrad_workspace": _LL}
 

@@ -159,13 +159,12 @@ class QuantConv(quant_ops.QuantLayer, nn.Conv2d):
     """``nn.Conv2d`` (same parameters and names) with an int8 W8A8
     evaluation path. Its mode: training -> the float conv; calibrating
     (``ops.quant.calibrate``) -> the float conv, plus ``amax`` = running
-    max|x| and the weight snapshot (``w_int8``, ``w_scale`` and, for a
-    conv that is not a 1x1 GEMM, the kernel's packed operand
-    ``w_packed``); otherwise int8 (``ops.quant.int8_conv``), its output
-    in the autocast dtype when autocast is on (else the input's), the
-    bias added after. A strided conv with fewer than
-    ``_MIN_STRIDED_POSITIONS`` output positions runs the float conv in
-    every mode."""
+    max|x| and the weight snapshot (``w_int8``, ``w_scale`` and kernel I's
+    packed operand ``w_packed``); otherwise int8 (``ops.quant.int8_conv``:
+    kernels Q and I), its output in the autocast dtype when autocast is on
+    (else the input's), the bias added after. A strided conv with fewer
+    than ``_MIN_STRIDED_POSITIONS`` output positions runs the float conv
+    in every mode."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -174,15 +173,6 @@ class QuantConv(quant_ops.QuantLayer, nn.Conv2d):
             raise ValueError("QuantConv: ungrouped, zero-padded convs with "
                              "numeric padding only")
         self._init_quant()
-        self.register_buffer("w_packed", None, persistent=False)
-
-    def _gemm(self) -> bool:
-        return self.kernel_size == (1, 1) and self.padding == (0, 0)
-
-    def _snapshot(self, w_int8, w_scale):
-        super()._snapshot(w_int8, w_scale)
-        self.w_packed = None if self._gemm() else quant_ops.pack_weight(
-            self.w_int8)
 
     def _small_strided(self, x) -> bool:
         sh, sw = self.stride
@@ -207,7 +197,8 @@ class QuantConv(quant_ops.QuantLayer, nn.Conv2d):
 class QuantDense(quant_ops.QuantLayer, nn.Linear):
     """``nn.Linear`` (same parameters and names) with an int8 W8A8
     evaluation path over the last axis; the modes of ``QuantConv``, the
-    int8 product by ``ops.quant.int8_dense``."""
+    int8 product by ``ops.quant.int8_dense`` (kernels Q and I, a one-tap
+    conv over the rows)."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -221,7 +212,7 @@ class QuantDense(quant_ops.QuantLayer, nn.Linear):
             return y
         dtype = self.out_dtype(x)
         y = quant_ops.int8_dense(x, self.w_int8, self.w_scale, self.amax,
-                                 out_dtype=dtype)
+                                 out_dtype=dtype, packed=self.w_packed)
         if self.bias is not None:
             y = y + self.bias.to(dtype)
         return y

@@ -14,24 +14,27 @@ acquisition sweep (port of ``halo_tpu/ops/quant.py``).
     ``float32(sum) * (sx * w_scale)`` and cast to the output dtype, and a
     bias is added after, by the layer.
 
-``int8_conv`` sends a 1x1 conv without padding, and ``int8_dense`` every
-dense layer, to ``int8_gemm``: ``torch._int_mm`` (cuBLASLt's int8 GEMM) on
-a CUDA tensor, with zero rows and columns added where its shape rules ask
-(exact for integers). Every other conv goes to ``int8_conv_kernel``, the
-hand-written kernel of ``csrc/int8_conv.cu``. On a CPU tensor both take
-their plain versions (``int8_gemm_plain``, ``int8_conv_plain``): float64
-products of the int8 values rounded to int32, which is exact because every
-partial sum is an integer below 2**53 in magnitude. On a CUDA tensor they
-launch or raise; nothing falls back.
+Every quantised layer (``int8_conv`` for any conv, ``int8_dense`` for a
+dense layer, a one-tap conv over its ``(..., C)`` rows) runs two kernels:
+``quantize_nhwc`` (kernel Q, ``csrc/int8_quant.cu``) quantises the float
+activation, read in whatever layout it has, into int8 NHWC with the
+channels zero-padded to a multiple of 16; ``int8_conv_kernel`` (kernel I,
+``csrc/int8_conv.cu``) convolves that with the weight ``pack_weight``
+packed at calibration, reading the absmax and the weight scales by
+pointer. On a CPU tensor both take their plain versions
+(``quantize_nhwc_plain``; ``int8_conv_plain`` or, for a one-tap GEMM,
+``int8_gemm_plain``: float64 products of the int8 values rounded to int32,
+exact because every partial sum is an integer below 2**53 in magnitude).
+On a CUDA tensor they launch or raise; nothing falls back.
 
 ``QuantLayer`` is the state and bookkeeping that ``models.layers``'
-``QuantConv`` and ``QuantDense`` share: ``amax``, ``w_int8`` and
-``w_scale`` are buffers kept out of ``state_dict()`` (a quantised build's
-``state_dict`` is the float build's), and a layer's mode is
-``module.training`` (float), ``calibrating`` (float, plus the running
-absmax and the weight snapshot; set by ``calibrate``) or neither (int8).
-``quant_state``/``load_quant_state`` carry the state through
-checkpoints, ``assert_calibrated`` guards an int8 evaluation.
+``QuantConv`` and ``QuantDense`` share: ``amax``, ``w_int8``, ``w_scale``
+and the packed operand ``w_packed`` are buffers kept out of
+``state_dict()`` (a quantised build's ``state_dict`` is the float build's),
+and a layer's mode is ``module.training`` (float), ``calibrating`` (float,
+plus the running absmax and the weight snapshot; set by ``calibrate``) or
+neither (int8). ``quant_state``/``load_quant_state`` carry the state
+through checkpoints, ``assert_calibrated`` guards an int8 evaluation.
 """
 
 from __future__ import annotations
@@ -50,18 +53,23 @@ _EPS = 1e-12
 # The scales' factor: absmax * float32(1/127) (see the module docstring).
 _INV_127 = 1.0 / 127.0
 
-# Launches of the int8 conv kernel, counted where it launches and nowhere
-# else; ``torch._int_mm`` calls of the GEMM path on CUDA; copies made to
-# bring an activation into the kernel's layout (channels-last, channels a
-# multiple of 16).
+# Launches of kernel I (the int8 conv) and of kernel Q (the activation
+# quantise), each counted where it launches and nowhere else; copies made
+# to view a dense layer's input of more than four dims as kernel Q reads it
+# (none on the port's models).
 launches = 0
-gemm_calls = 0
+quant_launches = 0
 layout_copies = 0
 
-_ENTRY = "halo_int8_conv"
-_OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# The kernel reads activations and weights 16 bytes (channels) at a time.
+_CONV_ENTRY = "halo_int8_conv"
+_QUANT_ENTRY = "halo_int8_quantize"
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# Kernel I reads activations and weights as TMA boxes of 16-byte rows.
 _CHANNEL_ALIGN = 16
+# The packed weight's output channels are padded to a multiple of 8.
+_CO_ALIGN = 8
+# TMA's largest traversal stride: kernel I's largest conv stride.
+_MAX_STRIDE = 8
 
 
 def _pair(v):
@@ -81,26 +89,61 @@ def quantize_weight(weight):
     return w_int8.to(torch.int8), w_scale
 
 
+def _act_scale(amax):
+    """The activation scale ``sx`` of an absmax."""
+    return torch.clamp(amax.float(), min=_EPS) * _INV_127
+
+
 def quantize_act(x, amax):
     """Symmetric per-tensor int8 of ``x`` against a calibrated absmax: the
     divide and round run in float32 whatever ``x``'s dtype. Returns
     ``(xq, sx)``; ``xq`` keeps ``x``'s shape and memory layout."""
-    sx = torch.clamp(amax.float(), min=_EPS) * _INV_127
+    sx = _act_scale(amax)
     xq = torch.round(x.float() / sx).clamp_(-127, 127)
     return xq.to(torch.int8), sx
+
+
+def pack_weight(wq):
+    """(Co, Cin, kh, kw) int8 weight, any strides -> kernel I's operand:
+    contiguous (Cop, kh*kw*Cp), K-major with the tap outer and the input
+    channel inner, Cp the channels padded with zeros to a multiple of 16
+    and Cop the output channels to a multiple of 8."""
+    co, c = wq.shape[:2]
+    w = F.pad(wq.permute(0, 2, 3, 1), (0, -c % _CHANNEL_ALIGN))
+    return F.pad(w.reshape(co, -1), (0, 0, 0, -co % _CO_ALIGN)).contiguous()
+
+
+def unpack_weight(packed, co, c, kh, kw):
+    """``pack_weight``'s inverse: the (co, c, kh, kw) int8 weight (a view;
+    ``c`` up to the padded channel count)."""
+    cp = packed.shape[1] // (kh * kw)
+    return packed[:co].reshape(co, kh, kw, cp)[..., :c].permute(0, 3, 1, 2)
+
+
+def _out_size(n, k, s, p, d):
+    return (n + 2 * p - d * (k - 1) - 1) // s + 1
 
 
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
 
+def quantize_nhwc_plain(x, amax):
+    """Plain version of kernel Q: ``quantize_act`` of a (B, C, H, W) ``x``
+    (any strides) as int8 (B, H, W, Cp), contiguous, the channels padded
+    with zeros to Cp, a multiple of 16."""
+    xq, _ = quantize_act(x, amax)
+    return F.pad(xq.permute(0, 2, 3, 1),
+                 (0, -x.shape[1] % _CHANNEL_ALIGN)).contiguous()
+
+
 def int8_conv_plain(xq, wq, scale, stride=1, padding=0, dilation=1,
                     out_dtype=torch.float32):
-    """Plain version of the int8 conv kernel: the int32 sums of NCHW ``xq``
-    with ``wq`` (Co, Cin, kh, kw), zero padding, as a float64 conv of the
-    int8 values rounded to int32 (exact on any device), then in float32
-    times the per-channel ``scale`` (sx * w_scale), cast to
-    ``out_dtype``. NCHW in and out."""
+    """Plain version of kernel I: the int32 sums of NCHW ``xq`` with ``wq``
+    (Co, Cin, kh, kw), zero padding, as a float64 conv of the int8 values
+    rounded to int32 (exact on any device), then in float32 times the
+    per-channel ``scale`` (sx * w_scale), cast to ``out_dtype``. NCHW in
+    and out."""
     with torch.autocast(xq.device.type, enabled=False):
         y = F.conv2d(xq.double(), wq.double(), None, _pair(stride),
                      _pair(padding), _pair(dilation))
@@ -109,15 +152,17 @@ def int8_conv_plain(xq, wq, scale, stride=1, padding=0, dilation=1,
 
 
 def int8_gemm_plain(a, w, scale, out_dtype=torch.float32):
-    """Plain version of ``int8_gemm``: the int32 ``a @ w.T`` as a float64
-    product rounded to int32 (exact), then as ``int8_gemm`` goes on."""
+    """Plain version of kernel I on a one-tap GEMM (a 1x1 stride-1 conv, a
+    dense layer): the int32 ``a @ w.T`` of int8 ``a`` (M, K) and ``w``
+    (N, K) as a float64 product rounded to int32 (exact), then
+    ``float32(sum) * scale`` cast to ``out_dtype``."""
     with torch.autocast(a.device.type, enabled=False):
         y = torch.round(a.double() @ w.double().t()).to(torch.int32)
     return (y.float() * scale).to(out_dtype)
 
 
 # ---------------------------------------------------------------------------
-# The CUDA paths
+# The kernels' wrappers
 # ---------------------------------------------------------------------------
 
 def _device_is_cuda(t, name: str) -> bool:
@@ -126,109 +171,110 @@ def _device_is_cuda(t, name: str) -> bool:
     return t.device.type == "cuda"
 
 
-def int8_gemm(a, w, scale, out_dtype=torch.float32):
-    """``float32(a @ w.T) * scale`` cast to ``out_dtype``: int8 ``a``
-    (M, K), int8 ``w`` (N, K), float32 ``scale`` (N,). On CUDA the int32
-    product is ``torch._int_mm``; rows (to more than 16) and K and N (to
-    multiples of 8) are padded with zeros where its rules ask."""
-    if not _device_is_cuda(a, "int8_gemm"):
-        return int8_gemm_plain(a, w, scale, out_dtype)
-    if a.dtype != torch.int8 or w.dtype != torch.int8:
-        raise TypeError(f"int8_gemm: dtypes {a.dtype}/{w.dtype}, want int8")
-    if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[1]:
-        raise ValueError(f"int8_gemm: shapes {tuple(a.shape)} / "
-                         f"{tuple(w.shape)}")
-    m, k = a.shape
-    n = w.shape[0]
-    pk, pn = -k % 8, -n % 8
-    if pk or m <= 16:
-        a = F.pad(a, (0, pk, 0, max(0, 17 - m)))
-    if pk or pn:
-        w = F.pad(w, (0, pk, 0, pn))
-    global gemm_calls
-    y = torch._int_mm(a.contiguous(), w.contiguous().t())
-    gemm_calls += 1
-    return (y[:m, :n].float() * scale).to(out_dtype)
+def _check_scalar(amax, x, name):
+    if amax.dtype != torch.float32 or amax.numel() != 1 or \
+            amax.device != x.device:
+        raise ValueError(f"{name}: amax must be one float32 on {x.device}")
 
 
-def pack_weight(wq):
-    """(Co, Cin, kh, kw) int8 weight, any strides -> the kernel's operand:
-    contiguous (Co, kh*kw*Cp), K-major with the tap outer and the input
-    channel inner, Cp the channels padded with zeros to a multiple of
-    16."""
-    co, c = wq.shape[:2]
-    w = wq.permute(0, 2, 3, 1)
-    pad = -c % _CHANNEL_ALIGN
-    if pad:
-        w = F.pad(w, (0, pad))
-    return w.reshape(co, -1).contiguous()
+def quantize_nhwc(x, amax):
+    """Kernel Q (``csrc/int8_quant.cu``): ``quantize_act`` of a (B, C, H,
+    W) float32 or bfloat16 ``x`` in any layout (NCHW, channels-last, a
+    view of a dense input) against ``amax`` (one float32 on ``x``'s
+    device, read by the kernel) -> int8 (B, H, W, Cp) contiguous, the
+    channels padded with zeros to Cp, a multiple of 16: kernel I's
+    operand. On a CPU tensor: ``quantize_nhwc_plain``."""
+    if not _device_is_cuda(x, "quantize_nhwc"):
+        return quantize_nhwc_plain(x, amax)
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"quantize_nhwc: input dtype {x.dtype}; the kernel "
+                        "reads float32 or bfloat16")
+    if x.dim() != 4:
+        raise ValueError(f"quantize_nhwc: shape {tuple(x.shape)}, want "
+                         "(B, C, H, W)")
+    _check_scalar(amax, x, "quantize_nhwc")
+    b, c, h, w = x.shape
+    if min(b, c, h, w) <= 0 or b * h * w >= 2 ** 31 - 64:
+        raise ValueError(f"quantize_nhwc: empty or too large input "
+                         f"{tuple(x.shape)}")
+    cp = c + (-c % _CHANNEL_ALIGN)
+    xq = torch.empty((b, h, w, cp), dtype=torch.int8, device=x.device)
+    err = getattr(kernels.load(), _QUANT_ENTRY)(
+        x.data_ptr(), _DTYPES[x.dtype], amax.data_ptr(), xq.data_ptr(), b, c,
+        h, w, *x.stride(), cp, _EPS, _INV_127,
+        kernels.current_stream(x.device))
+    kernels.check(err, _QUANT_ENTRY)
+    global quant_launches
+    quant_launches += 1
+    return xq
 
 
-def _out_size(n, k, s, p, d):
-    return (n + 2 * p - d * (k - 1) - 1) // s + 1
-
-
-def int8_conv_kernel(xq, wq, scale, stride=1, padding=0, dilation=1,
-                     out_dtype=torch.float32, packed=None):
-    """The int8 conv kernel (``csrc/int8_conv.cu``): NCHW int8 ``xq`` (read
-    as its channels-last buffer), ``wq`` (Co, Cin, kh, kw) int8, float32
-    ``scale`` (Co,) -> NCHW (channels-last) ``out_dtype`` (float32 or
-    bfloat16), zero padding, any kernel size, stride and dilation.
-    ``packed`` is ``pack_weight(wq)`` when the caller keeps it. On a CPU
-    tensor: ``int8_conv_plain``."""
-    stride, padding, dilation = _pair(stride), _pair(padding), \
-        _pair(dilation)
+def int8_conv_kernel(xq, packed, w_scale, amax, kernel_size, stride=1,
+                     padding=0, dilation=1, out_dtype=torch.float32):
+    """Kernel I (``csrc/int8_conv.cu``): kernel Q's int8 (B, H, W, Cp)
+    ``xq``, ``pack_weight``'s (Cop, kh*kw*Cp) ``packed``, float32
+    ``w_scale`` (Co,) and ``amax`` (one float32), both read by the kernel
+    -> (B, Co, Ho, Wo) ``out_dtype`` (float32 or bfloat16; a channels-last
+    view of NHWC), zero padding, any kernel size, dilation and a stride up
+    to 8. On a CPU tensor: ``int8_conv_plain`` (``int8_gemm_plain`` for a
+    one-tap GEMM) on the unpacked weight and ``sx * w_scale``."""
+    kernel_size, stride, padding, dilation = (
+        _pair(kernel_size), _pair(stride), _pair(padding), _pair(dilation))
+    kh, kw = kernel_size
+    co = w_scale.shape[0]
     if not _device_is_cuda(xq, "int8_conv_kernel"):
-        return int8_conv_plain(xq, wq, scale, stride, padding, dilation,
-                               out_dtype)
-    if xq.dtype != torch.int8 or wq.dtype != torch.int8:
-        raise TypeError(f"int8_conv_kernel: dtypes {xq.dtype}/{wq.dtype}, "
-                        "want int8")
-    if out_dtype not in _OUT_DTYPES:
+        b, h, w, cp = xq.shape
+        scale = _act_scale(amax) * w_scale
+        if kernel_size == stride == (1, 1) and padding == (0, 0):
+            w_int8 = unpack_weight(packed, co, cp, 1, 1)[:, :, 0, 0]
+            y = int8_gemm_plain(xq.reshape(-1, cp), w_int8, scale, out_dtype)
+            return y.reshape(b, h, w, co).permute(0, 3, 1, 2)
+        return int8_conv_plain(xq.permute(0, 3, 1, 2),
+                               unpack_weight(packed, co, cp, kh, kw), scale,
+                               stride, padding, dilation, out_dtype)
+    if xq.dtype != torch.int8 or packed.dtype != torch.int8:
+        raise TypeError(f"int8_conv_kernel: dtypes {xq.dtype}/"
+                        f"{packed.dtype}, want int8")
+    if out_dtype not in _DTYPES:
         raise TypeError(f"int8_conv_kernel: output dtype {out_dtype}; the "
                         "kernel writes float32 or bfloat16")
-    if scale.dtype != torch.float32 or not scale.is_contiguous():
-        raise TypeError("int8_conv_kernel: scale must be contiguous float32")
-    if not (wq.device == scale.device == xq.device):
+    if w_scale.dtype != torch.float32 or not w_scale.is_contiguous() or \
+            w_scale.dim() != 1:
+        raise TypeError("int8_conv_kernel: w_scale must be contiguous "
+                        "float32 (Co,)")
+    _check_scalar(amax, xq, "int8_conv_kernel")
+    if not (packed.device == w_scale.device == xq.device):
         raise ValueError("int8_conv_kernel: operands on different devices")
-    if xq.dim() != 4 or wq.dim() != 4 or wq.shape[1] != xq.shape[1]:
-        raise ValueError(f"int8_conv_kernel: shapes {tuple(xq.shape)} / "
-                         f"{tuple(wq.shape)}")
-    b, c, h, w = xq.shape
-    co, _, kh, kw = wq.shape
-    if scale.shape != (co,):
-        raise ValueError(f"int8_conv_kernel: scale {tuple(scale.shape)}, "
-                         f"want ({co},)")
+    if xq.dim() != 4 or not xq.is_contiguous() or xq.shape[3] % \
+            _CHANNEL_ALIGN:
+        raise ValueError(f"int8_conv_kernel: input {tuple(xq.shape)}, want "
+                         "contiguous (B, H, W, Cp), Cp a multiple of 16")
+    b, h, w, cp = xq.shape
+    cop = co + (-co % _CO_ALIGN)
+    if packed.shape != (cop, kh * kw * cp) or not packed.is_contiguous():
+        raise ValueError(f"int8_conv_kernel: packed weight "
+                         f"{tuple(packed.shape)}, want ({cop}, "
+                         f"{kh * kw * cp}) contiguous")
     ho = _out_size(h, kh, stride[0], padding[0], dilation[0])
     wo = _out_size(w, kw, stride[1], padding[1], dilation[1])
-    if min(b, c, co, ho, wo) <= 0 or min(stride + dilation) <= 0 or min(
-            padding) < 0:
+    if min(b, h, w, co, ho, wo, kh, kw) <= 0 or \
+            min(stride + dilation) <= 0 or min(padding) < 0 or \
+            max(stride) > _MAX_STRIDE:
         raise ValueError(f"int8_conv_kernel: empty or invalid conv: x "
-                         f"{tuple(xq.shape)}, w {tuple(wq.shape)}, stride "
+                         f"{tuple(xq.shape)}, kernel {kernel_size}, stride "
                          f"{stride}, padding {padding}, dilation {dilation}")
-    cp = c + (-c % _CHANNEL_ALIGN)
-    if b * h * w * cp >= 2 ** 40 or b * ho * wo >= 2 ** 31:
+    if b * h * w >= 2 ** 31 or b * ho * wo >= 2 ** 31:
         raise ValueError("int8_conv_kernel: tensor too large")
-    xh = xq.permute(0, 2, 3, 1)
-    if cp != c or not xh.is_contiguous():
-        global layout_copies
-        layout_copies += 1
-        xh = F.pad(xh, (0, cp - c)).contiguous()
-    if packed is None:
-        packed = pack_weight(wq)
-    if packed.shape != (co, kh * kw * cp) or not packed.is_contiguous():
-        raise ValueError(f"int8_conv_kernel: packed weight "
-                         f"{tuple(packed.shape)}, want ({co}, "
-                         f"{kh * kw * cp}) contiguous")
-    if xh.data_ptr() % 16 or packed.data_ptr() % 16:
+    if xq.data_ptr() % 16 or packed.data_ptr() % 16:
         raise ValueError("int8_conv_kernel: operands not 16-byte aligned")
     y = torch.empty((b, ho, wo, co), dtype=out_dtype, device=xq.device)
-    err = getattr(kernels.load(), _ENTRY)(
-        xh.data_ptr(), packed.data_ptr(), scale.data_ptr(), y.data_ptr(),
-        _OUT_DTYPES[out_dtype], b, h, w, cp, ho, wo, co, kh, kw,
-        stride[0], stride[1], padding[0], padding[1], dilation[0],
-        dilation[1], kernels.current_stream(xq.device))
-    kernels.check(err, _ENTRY)
+    err = getattr(kernels.load(), _CONV_ENTRY)(
+        xq.data_ptr(), packed.data_ptr(), amax.data_ptr(),
+        w_scale.data_ptr(), y.data_ptr(), _DTYPES[out_dtype], b, h, w, cp,
+        ho, wo, co, cop, kh, kw, stride[0], stride[1], padding[0],
+        padding[1], dilation[0], dilation[1], _EPS, _INV_127,
+        kernels.current_stream(xq.device))
+    kernels.check(err, _CONV_ENTRY)
     global launches
     launches += 1
     return y.permute(0, 3, 1, 2)
@@ -240,35 +286,41 @@ def int8_conv_kernel(xq, wq, scale, stride=1, padding=0, dilation=1,
 
 def int8_conv(x, w_int8, w_scale, amax, stride=1, padding=0, dilation=1,
               out_dtype=torch.float32, packed=None):
-    """W8A8 conv of NCHW ``x`` with ``w_int8`` (Co, Cin, kh, kw) and
-    ``w_scale`` (Co,), against ``amax``: quantise ``x``, int32 sums,
-    dequantise to ``out_dtype``. Zero padding is exact (the quantisation is
-    symmetric). A 1x1 conv without padding is a channel GEMM
-    (``int8_gemm``; a strided one first takes every ``stride``-th pixel);
-    every other conv runs the kernel (``int8_conv_kernel``)."""
-    stride, padding, dilation = _pair(stride), _pair(padding), \
-        _pair(dilation)
-    xq, sx = quantize_act(x, amax)
-    scale = sx * w_scale
-    co, c, kh, kw = w_int8.shape
-    if (kh, kw) == (1, 1) and padding == (0, 0):
-        if stride != (1, 1):
-            xq = xq[:, :, ::stride[0], ::stride[1]]
-        b, _, h, w = xq.shape
-        a = xq.permute(0, 2, 3, 1).reshape(-1, c)
-        y = int8_gemm(a, w_int8.reshape(co, c), scale, out_dtype)
-        return y.reshape(b, h, w, co).permute(0, 3, 1, 2)
-    return int8_conv_kernel(xq, w_int8, scale, stride, padding, dilation,
-                            out_dtype, packed)
+    """W8A8 conv of NCHW ``x`` (any layout) with ``w_int8`` (Co, Cin, kh,
+    kw) and ``w_scale`` (Co,), against ``amax``: kernel Q, then kernel I.
+    Zero padding is exact (the quantisation is symmetric). ``packed`` is
+    ``pack_weight(w_int8)`` when the caller keeps it."""
+    if packed is None:
+        packed = pack_weight(w_int8)
+    return int8_conv_kernel(quantize_nhwc(x, amax), packed, w_scale, amax,
+                            tuple(w_int8.shape[2:]), stride, padding,
+                            dilation, out_dtype)
 
 
-def int8_dense(x, w_int8, w_scale, amax, out_dtype=torch.float32):
+def _channels_view(x):
+    """A dense input (..., C) as the (B, C, H, W) view kernel Q reads: its
+    rows are the pixels, in order (a copy only past four dims)."""
+    if x.dim() > 4:
+        flat = x.reshape(-1, *x.shape[-3:])
+        if not flat._is_view():
+            global layout_copies
+            layout_copies += 1
+        x = flat
+    return x[(None,) * (4 - x.dim())].permute(0, 3, 1, 2)
+
+
+def int8_dense(x, w_int8, w_scale, amax, out_dtype=torch.float32,
+               packed=None):
     """W8A8 dense layer: ``x`` (..., Cin) by ``w_int8`` (Cout, Cin), the
-    ``nn.Linear`` layout -> (..., Cout) in ``out_dtype``."""
-    xq, sx = quantize_act(x, amax)
-    y = int8_gemm(xq.reshape(-1, xq.shape[-1]), w_int8, sx * w_scale,
-                  out_dtype)
-    return y.reshape(*x.shape[:-1], w_int8.shape[0])
+    ``nn.Linear`` layout -> (..., Cout) in ``out_dtype``: kernel Q, then
+    kernel I as a one-tap conv over the rows. ``packed`` is
+    ``pack_weight`` of ``w_int8`` as a 1x1 conv weight."""
+    co = w_int8.shape[0]
+    if packed is None:
+        packed = pack_weight(w_int8[:, :, None, None])
+    y = int8_conv_kernel(quantize_nhwc(_channels_view(x), amax), packed,
+                         w_scale, amax, 1, 1, 0, 1, out_dtype)
+    return y.permute(0, 2, 3, 1).reshape(*x.shape[:-1], co)
 
 
 # ---------------------------------------------------------------------------
@@ -279,8 +331,10 @@ class QuantLayer:
     """Quantisation state of ``QuantConv``/``QuantDense`` (mixed into
     ``nn.Conv2d``/``nn.Linear``): buffers ``amax`` (the running activation
     absmax, a float32 scalar), ``w_int8`` and ``w_scale`` (the weight
-    snapshot of the last calibration, in the parameter's layout), none of
-    them in ``state_dict()``; ``calibrating`` is the calibration mode."""
+    snapshot of the last calibration, in the parameter's layout) and
+    ``w_packed`` (``w_int8`` as kernel I's operand, ``pack_weight`` of it
+    as a conv weight), none of them in ``state_dict()``; ``calibrating``
+    is the calibration mode."""
 
     calibrating = False
 
@@ -288,16 +342,21 @@ class QuantLayer:
         w = self.weight
         self.register_buffer("amax", torch.zeros((), device=w.device),
                              persistent=False)
-        self.register_buffer("w_int8", torch.zeros(
-            w.shape, dtype=torch.int8, device=w.device), persistent=False)
         self.register_buffer("w_scale", torch.ones(w.shape[0],
                                                    device=w.device),
                              persistent=False)
+        self.register_buffer("w_int8", None, persistent=False)
+        self.register_buffer("w_packed", None, persistent=False)
+        self._snapshot(torch.zeros(w.shape, dtype=torch.int8,
+                                   device=w.device), self.w_scale)
 
     def _snapshot(self, w_int8, w_scale):
-        """Take ``w_int8``/``w_scale`` as the layer's frozen weights."""
+        """Take ``w_int8``/``w_scale`` as the layer's frozen weights, and
+        pack ``w_int8`` for kernel I."""
         self.w_int8 = w_int8.to(self.weight.device, torch.int8)
         self.w_scale = w_scale.to(self.weight.device, torch.float32)
+        w = self.w_int8
+        self.w_packed = pack_weight(w.reshape(w.shape + (1,) * (4 - w.dim())))
 
     @torch.no_grad()
     def observe(self, x):

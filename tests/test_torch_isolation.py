@@ -100,38 +100,48 @@ def test_wrappers_refuse_other_devices():
                                  num_picks=1, mask_radius=1)
     with pytest.raises(ValueError):
         cuda_radius.radius_map(torch.zeros((4, 4, 8), device="meta"))
-    q = torch.zeros((1, 16, 4, 4), dtype=torch.int8, device="meta")
-    w = torch.zeros((16, 16, 3, 3), dtype=torch.int8, device="meta")
+    q = torch.zeros((1, 4, 4, 16), dtype=torch.int8, device="meta")
+    w = torch.zeros((16, 144), dtype=torch.int8, device="meta")
     with pytest.raises(ValueError):
-        quant.int8_conv_kernel(q, w, torch.ones(16, device="meta"))
+        quant.int8_conv_kernel(q, w, torch.ones(16, device="meta"),
+                               torch.ones((), device="meta"), 3)
     with pytest.raises(ValueError):
-        quant.int8_gemm(q.reshape(16, 16), w[:, :, 0, 0],
-                        torch.ones(16, device="meta"))
+        quant.quantize_nhwc(torch.zeros((1, 16, 4, 4), device="meta"),
+                            torch.ones((), device="meta"))
 
 
 def test_int8_paths_on_cuda_never_take_the_plain_versions(monkeypatch):
     """The int8 wrappers' CUDA branch, driven with CPU tensors taken for
-    CUDA ones: the conv launches the kernel entry (a stand-in library
-    here) and raises on its error, the GEMM calls ``torch._int_mm``; the
-    plain versions are never called, and nothing falls back."""
+    CUDA ones: every quantised layer's route (a k x k conv, a strided 1x1
+    conv, a dense layer on a 3-D input) launches kernel Q, then kernel I
+    (the entries of a stand-in library here), and raises on an error; the
+    plain versions and ``torch._int_mm`` are never called, and nothing
+    falls back."""
     from halo_tpu_torch import kernels
     from halo_tpu_torch.ops import quant
 
     def refuse(*args, **kwargs):
         raise AssertionError("a plain version ran on the CUDA path")
 
-    launched = []
+    launched, fail = [], []
 
     class Library:
-        """Succeeds once, then returns cudaErrorIllegalAddress (700)."""
+        """Q succeeds; I returns cudaErrorIllegalAddress (700) while
+        ``fail`` holds an entry."""
+
+        def halo_int8_quantize(self, *args):
+            launched.append("Q")
+            return 0
 
         def halo_int8_conv(self, *args):
-            launched.append(args)
-            return 0 if len(launched) == 1 else 700
+            launched.append("I")
+            return 700 if fail else 0
 
     monkeypatch.setattr(quant, "_device_is_cuda", lambda t, name: True)
-    monkeypatch.setattr(quant, "int8_conv_plain", refuse)
-    monkeypatch.setattr(quant, "int8_gemm_plain", refuse)
+    for name in ("int8_conv_plain", "int8_gemm_plain", "quantize_nhwc_plain",
+                 "quantize_act"):
+        monkeypatch.setattr(quant, name, refuse)
+    monkeypatch.setattr(torch, "_int_mm", refuse)
     monkeypatch.setattr(kernels, "load", Library)
     monkeypatch.setattr(kernels, "current_stream", lambda device: 0)
 
@@ -141,18 +151,26 @@ def test_int8_paths_on_cuda_never_take_the_plain_versions(monkeypatch):
 
     monkeypatch.setattr(kernels, "check", check)
     x = torch.randn(1, 32, 6, 7)
+    amax = x.abs().max()
     w_int8, w_scale = quant.quantize_weight(torch.randn(48, 32, 3, 3))
-    n, g = quant.launches, quant.gemm_calls
-    y = quant.int8_conv(x, w_int8, w_scale, x.abs().max(), 1, 1, 1)
-    assert y.shape == (1, 48, 6, 7) and quant.launches == n + 1
+    n, nq = quant.launches, quant.quant_launches
+    y = quant.int8_conv(x, w_int8, w_scale, amax, 1, 1, 1)
+    assert y.shape == (1, 48, 6, 7) and launched == ["Q", "I"]
+    assert (quant.launches, quant.quant_launches) == (n + 1, nq + 1)
+    fail.append(True)
     with pytest.raises(RuntimeError, match="CUDA error"):
-        quant.int8_conv(x, w_int8, w_scale, x.abs().max(), 1, 1, 1)
-    assert quant.launches == n + 1
+        quant.int8_conv(x, w_int8, w_scale, amax, 1, 1, 1)
+    assert quant.launches == n + 1 and launched == ["Q", "I", "Q", "I"]
+    fail.clear()
     y = quant.int8_conv(x, w_int8[:, :, :1, :1].contiguous(), w_scale,
-                        x.abs().max(), 2)
-    assert y.shape == (1, 48, 3, 4) and quant.gemm_calls == g + 1
+                        amax, 2)
+    assert y.shape == (1, 48, 3, 4) and launched[4:] == ["Q", "I"]
+    y = quant.int8_dense(torch.randn(2, 5, 32), w_int8[:, :, 0, 0], w_scale,
+                         amax)
+    assert y.shape == (2, 5, 48) and launched[6:] == ["Q", "I"]
+    assert (quant.launches, quant.quant_launches) == (n + 3, nq + 4)
     with pytest.raises(TypeError):    # no float16 output on the card
-        quant.int8_conv(x, w_int8, w_scale, x.abs().max(), 1, 1, 1,
+        quant.int8_conv(x, w_int8, w_scale, amax, 1, 1, 1,
                         out_dtype=torch.float16)
 
 

@@ -317,18 +317,29 @@ def test_dilated_conv_refuses(gen):
                                                         2) == -1
 
 
-def _int8_case(gen, b, c, co, h, w):
-    """int8 activations (channels_last) and weights over the full range,
-    and a float32 per-channel scale."""
-    xq = torch.randint(-127, 128, (b, c, h, w), generator=gen,
+def _int8_case(gen, b, c, co, h, w, k=1):
+    """int8 activations as kernel Q writes them (NHWC, channels padded with
+    zeros to a multiple of 16), int8 weights over the full range and their
+    packed operand, float32 weight scales and an absmax on the device."""
+    from halo_tpu_torch.ops import quant
+    xq = torch.randint(-127, 128, (b, h, w, c), generator=gen,
                        device="cuda", dtype=torch.int8)
-    xq = xq.contiguous(memory_format=torch.channels_last)
-    scale = torch.rand((co,), generator=gen, device="cuda") * 1e-4
-    return xq, scale
+    xq = torch.nn.functional.pad(xq, (0, -c % 16)).contiguous()
+    wq = torch.randint(-127, 128, (co, c, k, k), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    w_scale = torch.rand((co,), generator=gen, device="cuda") * 1e-2
+    amax = torch.rand((), generator=gen, device="cuda") * 4
+    return xq, wq, quant.pack_weight(wq), w_scale, amax
+
+
+def _scale(amax, w_scale):
+    from halo_tpu_torch.ops import quant
+    return quant.quantize_act(torch.zeros(1, device="cuda"), amax)[1] * \
+        w_scale
 
 
 @pytest.mark.parametrize("b,c,co,h,w,k,s,p,d", [
-    (1, 64, 64, 40, 80, 3, 1, 1, 1),       # layer1: 64-wide tiles
+    (1, 64, 64, 40, 80, 3, 1, 1, 1),       # layer1: 64-byte K steps
     (2, 128, 128, 40, 80, 3, 2, 1, 1),     # layer2's first: stride 2
     (2, 256, 256, 20, 40, 3, 1, 2, 2),     # layer3
     (1, 512, 512, 20, 40, 3, 1, 4, 4),     # layer4
@@ -344,19 +355,166 @@ def _int8_case(gen, b, c, co, h, w):
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_int8_conv_kernel_matches_plain_bit_for_bit(gen, b, c, co, h, w, k,
                                                     s, p, d, out_dtype):
-    """The int8 conv kernel against its plain version (float64 sums of
-    the int8 values, exact), the same bits in float32 and in bfloat16."""
+    """Kernel I against its plain version (float64 sums of the int8
+    values, exact), the same bits in float32 and in bfloat16."""
     from halo_tpu_torch.ops import quant
-    xq, scale = _int8_case(gen, b, c, co, h, w)
-    wq = torch.randint(-127, 128, (co, c, k, k), generator=gen,
-                       device="cuda", dtype=torch.int8)
+    xq, wq, packed, w_scale, amax = _int8_case(gen, b, c, co, h, w, k)
     before = quant.launches
-    got = quant.int8_conv_kernel(xq, wq, scale, s, p, d, out_dtype)
-    want = quant.int8_conv_plain(xq, wq, scale, s, p, d, out_dtype)
+    got = quant.int8_conv_kernel(xq, packed, w_scale, amax, k, s, p, d,
+                                 out_dtype)
+    want = quant.int8_conv_plain(xq[..., :c].permute(0, 3, 1, 2), wq,
+                                 _scale(amax, w_scale), s, p, d, out_dtype)
     torch.cuda.synchronize()
     assert quant.launches == before + 1
     assert got.shape == want.shape and got.dtype == out_dtype
     assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want)
+
+
+# The shapes of the int8 path as chip_smoke.py times them (R101 at a
+# 640x1280 input, MiT-B4's pe3): (Cin, Cout, H, W, kernel, stride,
+# dilation) of the k x k convs, and (M at B = 2, K, N) of the 1x1 convs
+# and dense layers.
+PATH_CONVS = {
+    "layer1": (64, 64, 160, 320, 3, 1, 1),
+    "layer2.0-s2": (128, 128, 160, 320, 3, 2, 1),
+    "layer2": (128, 128, 80, 160, 3, 1, 1),
+    "layer3-d2": (256, 256, 80, 160, 3, 1, 2),
+    "layer4-d4": (512, 512, 80, 160, 3, 1, 4),
+    "aspp-bottleneck": (2560, 512, 80, 160, 3, 1, 1),
+    "mit-pe3-s2": (128, 320, 80, 160, 3, 2, 1),
+}
+PATH_GEMMS = {
+    "layer3-conv1": (2 * 80 * 160, 1024, 256),
+    "layer3-conv3": (2 * 80 * 160, 256, 1024),
+    "aspp-global": (2, 2048, 512),
+    "decoder-pointwise": (2 * 160 * 320, 560, 512),
+    "mit-stage1-fc2": (2 * 160 * 320, 256, 64),
+    "mit-stage3-fc1": (2 * 40 * 80, 320, 1280),
+}
+
+
+def _float_input(gen, shape, dtype):
+    """Channels-last float activations with a tail past the absmax."""
+    x = torch.randn(shape, generator=gen, device="cuda") * 2
+    return x.to(dtype).contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("label", list(PATH_CONVS))
+@pytest.mark.parametrize("b", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_path_convs_bit_exact(gen, label, b, dtype):
+    """Kernels Q and I at the path's k x k shapes, each bit for bit
+    against its plain version, float32 and bfloat16 in and out."""
+    from halo_tpu_torch.ops import quant
+    c, co, h, w, k, s, d = PATH_CONVS[label]
+    x = _float_input(gen, (b, c, h, w), dtype)
+    amax = torch.tensor(3.0, device="cuda")
+    _, wq, packed, w_scale, _ = _int8_case(gen, 1, c, co, 1, 1, k)
+    n, nq = quant.launches, quant.quant_launches
+    xq = quant.quantize_nhwc(x, amax)
+    got = quant.int8_conv_kernel(xq, packed, w_scale, amax, k, s, d, d,
+                                 dtype)
+    want_q = quant.quantize_nhwc_plain(x, amax)
+    want = quant.int8_conv_plain(want_q[..., :c].permute(0, 3, 1, 2), wq,
+                                 _scale(amax, w_scale), s, d, d, dtype)
+    torch.cuda.synchronize()
+    assert (quant.launches, quant.quant_launches) == (n + 1, nq + 1)
+    assert torch.equal(xq, want_q)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("label", list(PATH_GEMMS))
+@pytest.mark.parametrize("b", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_path_gemms_bit_exact(gen, label, b, dtype):
+    """The 1x1 convs and dense layers of the path (M = 2 included) as
+    ``int8_dense`` runs them, kernels Q and I each bit for bit against
+    its plain version."""
+    from halo_tpu_torch.ops import quant
+    m, k, n_out = PATH_GEMMS[label]
+    m = m * b // 2
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dtype) * 2
+    amax = torch.tensor(3.0, device="cuda")
+    _, wq, packed, w_scale, _ = _int8_case(gen, 1, k, n_out, 1, 1)
+    n, nq = quant.launches, quant.quant_launches
+    xq = quant.quantize_nhwc(quant._channels_view(x), amax)
+    got = quant.int8_conv_kernel(xq, packed, w_scale, amax, 1, 1, 0, 1,
+                                 dtype)
+    want_q = quant.quantize_nhwc_plain(quant._channels_view(x), amax)
+    want = quant.int8_gemm_plain(want_q.reshape(m, -1)[:, :k],
+                                 wq[:, :, 0, 0], _scale(amax, w_scale), dtype)
+    torch.cuda.synchronize()
+    assert (quant.launches, quant.quant_launches) == (n + 1, nq + 1)
+    assert torch.equal(xq, want_q)
+    assert torch.equal(got.permute(0, 2, 3, 1).reshape(m, n_out), want)
+
+
+@pytest.mark.parametrize("layout", ["aspp-concat", "nchw", "tokens-3d",
+                                    "expanded"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_quantize_reads_any_layout(gen, layout, dtype):
+    """Kernel Q on the layouts the path hands it, bit for bit against its
+    plain version: the ASPP bottleneck's concatenation (channels-last
+    branches and the broadcast global branch: not channels-last), NCHW,
+    a strided (B, N, C) token view, a broadcast map; C = 2560, 1000 and
+    300 (no multiple of 16: the padding is zero)."""
+    from halo_tpu_torch.ops import quant
+    amax = torch.tensor(2.5, device="cuda")
+    if layout == "aspp-concat":
+        parts = [_float_input(gen, (2, 512, 40, 80), dtype)
+                 for _ in range(4)]
+        pooled = torch.randn((2, 512, 1, 1), generator=gen, device="cuda")
+        x = torch.cat([pooled.to(dtype).expand(-1, -1, 40, 80)] + parts,
+                      dim=1)
+    elif layout == "nchw":
+        x = torch.randn((2, 1000, 33, 47), generator=gen,
+                        device="cuda").to(dtype)
+    elif layout == "tokens-3d":
+        t = torch.randn((700, 2, 300), generator=gen,
+                        device="cuda").to(dtype).transpose(0, 1)
+        x = quant._channels_view(t)
+    else:
+        x = torch.randn((2, 300, 1, 1), generator=gen,
+                        device="cuda").to(dtype).expand(-1, -1, 45, 61)
+    n = quant.quant_launches
+    got = quant.quantize_nhwc(x, amax)
+    want = quant.quantize_nhwc_plain(x, amax)
+    torch.cuda.synchronize()
+    assert quant.quant_launches == n + 1
+    assert got.shape == want.shape and torch.equal(got, want)
+    c = x.shape[1]
+    assert not got[..., c:].any()
+
+
+@pytest.mark.parametrize("amax", [15.875, 3.0, 1e-3, 0.0, 2.5e4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_quantize_ties_bit_exact(gen, amax, dtype):
+    """Kernel Q at and around the rounding boundaries, bit for bit
+    against its plain version (an IEEE division on the card): values
+    (k + 0.5) * sx and the floats next to them (where the kernel's
+    reciprocal rule takes its exact fix-up), random values, values past
+    +-amax, zeros and infinities."""
+    from halo_tpu_torch.ops import quant
+    a = torch.tensor(amax, device="cuda")
+    sx = quant.quantize_act(torch.zeros(1, device="cuda"), a)[1]
+    k = torch.randint(-130, 130, (1 << 14,), generator=gen, device="cuda")
+    vals = [(k.float() + 0.5) * sx]
+    for direction in (float("inf"), float("-inf")):
+        v = vals[0]
+        for _ in range(3):
+            v = torch.nextafter(v, torch.full_like(v, direction))
+            vals.append(v)
+    vals.append((torch.rand((1 << 14,), generator=gen, device="cuda") * 260
+                 - 130) * sx)
+    vals.append(torch.tensor([0.0, -0.0, float("inf"), float("-inf"),
+                              3e38, -3e38, 1e-45, -1e-45] * 8,
+                             device="cuda"))
+    x = torch.cat(vals).to(dtype).reshape(-1, 64)
+    xv = quant._channels_view(x)
+    got = quant.quantize_nhwc(xv, a)
+    want = quant.quantize_nhwc_plain(xv, a)
+    torch.cuda.synchronize()
     assert torch.equal(got, want)
 
 
@@ -382,44 +540,87 @@ def test_int8_conv_layer_matches_plain_with_clipping(gen):
             assert float(got.abs().max()) < 1e-6
 
 
+def test_int8_layers_launch_two_kernels(gen, monkeypatch):
+    """Every quantised layer, calibrated on the card, runs kernel Q then
+    kernel I (one launch each) and nothing else of ours; ``torch._int_mm``
+    never."""
+    from halo_tpu_torch.models.layers import QuantConv, QuantDense
+    from halo_tpu_torch.ops import quant
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("torch._int_mm ran on the int8 path")
+
+    monkeypatch.setattr(torch, "_int_mm", refuse)
+    x = torch.randn((2, 256, 96, 128), generator=gen, device="cuda")
+    layers = [QuantConv(256, 64, 3, padding=2, dilation=2),
+              QuantConv(256, 128, 1), QuantConv(256, 96, 1, stride=2),
+              QuantDense(256, 40)]
+    for layer in layers:
+        layer = layer.cuda().eval()
+        inp = x.permute(0, 2, 3, 1) if isinstance(layer, QuantDense) else x
+        quant.calibrate(layer, [inp])
+        assert torch.equal(layer.w_packed, quant.pack_weight(
+            layer.w_int8.reshape(layer.w_int8.shape[:2] + (
+                layer.w_int8.shape[2:] or (1, 1)))))
+        n, nq = quant.launches, quant.quant_launches
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            y = layer(inp)
+        torch.cuda.synchronize()
+        assert (quant.launches, quant.quant_launches) == (n + 1, nq + 1)
+        assert y.dtype == torch.bfloat16 and bool(torch.isfinite(y).all())
+
+
 @pytest.mark.parametrize("m,k,n", [(25600, 256, 1024), (2, 2048, 512),
                                    (100, 20, 36), (4096, 320, 1280)])
 def test_int8_gemm_matches_plain(gen, m, k, n):
-    """``torch._int_mm`` with the wrapper's padding (rows to more than
-    16, K and N to multiples of 8) against the plain product, exact."""
+    """Kernel I as a one-tap GEMM (the dense route: rows of int8 ``a``
+    against ``w``) against the plain product, exact, float32 and
+    bfloat16 out."""
     from halo_tpu_torch.ops import quant
-    a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
-                      dtype=torch.int8)
-    w = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
-                      dtype=torch.int8)
-    scale = torch.rand((n,), generator=gen, device="cuda") * 1e-4
-    before = quant.gemm_calls
+    a, wq, packed, w_scale, amax = _int8_case(gen, 1, k, n, m, 1)
+    before = quant.launches
     for dtype in (torch.float32, torch.bfloat16):
-        got = quant.int8_gemm(a, w, scale, dtype)
-        want = quant.int8_gemm_plain(a, w, scale, dtype)
+        got = quant.int8_conv_kernel(a, packed, w_scale, amax, 1, 1, 0, 1,
+                                     dtype)
+        want = quant.int8_gemm_plain(a.reshape(m, -1)[:, :k], wq[:, :, 0, 0],
+                                     _scale(amax, w_scale), dtype)
         torch.cuda.synchronize()
-        assert torch.equal(got, want)
-    assert quant.gemm_calls == before + 2
+        assert torch.equal(got.reshape(n, m).t(), want)
+    assert quant.launches == before + 2
 
 
 def test_int8_conv_refuses(gen):
     from halo_tpu_torch import kernels
     from halo_tpu_torch.ops import quant
-    xq = torch.zeros((1, 32, 8, 8), device="cuda", dtype=torch.int8)
-    wq = torch.zeros((16, 32, 3, 3), device="cuda", dtype=torch.int8)
-    scale = torch.ones(16, device="cuda")
-    n = quant.launches
+    xq, wq, packed, w_scale, amax = _int8_case(gen, 1, 32, 16, 8, 8, 3)
+    n, nq = quant.launches, quant.quant_launches
     with pytest.raises(TypeError):        # no float activations
-        quant.int8_conv_kernel(xq.float(), wq, scale)
+        quant.int8_conv_kernel(xq.float(), packed, w_scale, amax, 3)
     with pytest.raises(TypeError):        # no float16 output
-        quant.int8_conv_kernel(xq, wq, scale, out_dtype=torch.float16)
+        quant.int8_conv_kernel(xq, packed, w_scale, amax, 3,
+                               out_dtype=torch.float16)
     with pytest.raises(ValueError):       # Cin mismatch
-        quant.int8_conv_kernel(xq, wq[:, :16], scale)
-    assert quant.launches == n
+        quant.int8_conv_kernel(xq[..., :16].contiguous(), packed, w_scale,
+                               amax, 3)
+    with pytest.raises(ValueError):       # amax on the host
+        quant.int8_conv_kernel(xq, packed, w_scale, amax.cpu(), 3)
+    with pytest.raises(ValueError):       # stride beyond TMA's 8
+        quant.int8_conv_kernel(xq, packed, w_scale, amax, 3, 9)
+    with pytest.raises(TypeError):        # no float16 input to Q
+        quant.quantize_nhwc(torch.zeros((1, 8, 4, 4), device="cuda",
+                                        dtype=torch.float16), amax)
+    assert (quant.launches, quant.quant_launches) == (n, nq)
     y = torch.empty((1, 6, 6, 16), device="cuda")
-    err = kernels.load().halo_int8_conv(    # C % 16 != 0 at the C entry
-        xq.data_ptr(), wq.data_ptr(), scale.data_ptr(), y.data_ptr(), 0,
-        1, 8, 8, 24, 6, 6, 16, 3, 3, 1, 1, 0, 0, 1, 1,
-        kernels.current_stream(xq.device))
+    lib = kernels.load()
+    err = lib.halo_int8_conv(    # C % 16 != 0 at the C entry
+        xq.data_ptr(), packed.data_ptr(), amax.data_ptr(),
+        w_scale.data_ptr(), y.data_ptr(), 0, 1, 8, 8, 24, 6, 6, 16, 16, 3, 3,
+        1, 1, 0, 0, 1, 1, 1e-12, 1 / 127, kernels.current_stream(xq.device))
     with pytest.raises(RuntimeError, match="CUDA error"):
         kernels.check(err, "halo_int8_conv")
+    err = lib.halo_int8_quantize(    # Cp below C at the C entry
+        y.data_ptr(), 0, amax.data_ptr(), xq.data_ptr(), 1, 40, 8, 8,
+        2560, 64, 320, 8, 32, 1e-12, 1 / 127,
+        kernels.current_stream(xq.device))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kernels.check(err, "halo_int8_quantize")

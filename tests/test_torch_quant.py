@@ -127,19 +127,99 @@ def test_quantize_act_matches_jax(amax):
         assert got.abs().max() == 127 and (got.abs() == 127).sum() > 10
 
 
-# (kernel, stride, padding, dilation); amax at max|x|, below it (clips),
-# and 0
+# An absmax whose scale is a power of two: sx = fl32(15.875 * fl32(1/127))
+# = 0.125 exactly, so (k + 0.5) * sx are exact ties in float32 and bf16.
+_TIE_AMAX = 15.875
+
+
+def _tie_input(rng, shape, amax):
+    """float32 values of ``shape``: exact half-way points (k + 0.5) * sx,
+    random values within +-amax, values beyond it and +-inf."""
+    sx = 0.125
+    x = rng.uniform(-amax, amax, size=shape).astype(np.float32)
+    flat = x.reshape(-1)
+    n = flat.size
+    flat[: n // 3] = (rng.integers(-127, 127, n // 3) + 0.5) * sx
+    flat[n // 3: n // 3 + 8] = [amax * 2, -amax * 2, amax * 1.01, -amax * 9,
+                                np.inf, -np.inf, 0.0, -0.0]
+    rng.shuffle(flat)
+    return x
+
+
+@pytest.mark.parametrize("layout", ["nchw", "channels_last", "tokens"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("amax_kind", ["ties", "zero"])
+def test_quantize_nhwc_plain_matches_jax(layout, dtype, amax_kind):
+    """Kernel Q's plain version (what ``quantize_nhwc`` runs on the CPU)
+    bit for bit against the JAX ``quantize_act`` compiled: bf16 and f32
+    input, NCHW, channels-last and (B, N, C) token input, values exactly on
+    half-way points, beyond +-amax and infinite, amax = 0 (every nonzero
+    value clips), and C = 24 zero-padded to 32."""
+    rng = _rng(11)
+    amax = np.float32(_TIE_AMAX if amax_kind == "ties" else 0.0)
+    nhwc = _tie_input(rng, (2, 5, 7, 24), _TIE_AMAX)
+    if dtype == "bfloat16":   # bf16 values, held exactly in float32
+        nhwc = np.array(jnp.asarray(nhwc, jnp.bfloat16).astype(
+            jnp.float32))
+        ties = nhwc[np.abs(nhwc) < _TIE_AMAX] / np.float32(0.125)
+        assert (ties % 1 == 0.5).sum() > 50   # the ties survive bf16
+    t = torch.from_numpy(nhwc).to(getattr(torch, dtype))
+    if layout == "nchw":
+        x = t.permute(0, 3, 1, 2).contiguous()
+    elif layout == "channels_last":
+        x = t.permute(0, 3, 1, 2)
+        assert x.is_contiguous(memory_format=torch.channels_last)
+    else:
+        x = quant._channels_view(t.reshape(2, 35, 24))
+        assert x.shape == (1, 24, 2, 35)
+    got = quant.quantize_nhwc(x, torch.tensor(amax))
+    want, _ = jax.jit(jax_quant.quantize_act)(
+        jnp.asarray(nhwc, getattr(jnp, dtype)), jnp.float32(amax))
+    got = got.reshape(70, 32).numpy()
+    assert got.dtype == np.int8
+    np.testing.assert_array_equal(got[:, :24], np.asarray(want).reshape(70,
+                                                                        24))
+    assert not got[:, 24:].any()
+    if amax_kind == "zero":
+        assert (np.abs(got[:, :24]) == 127).sum() == (nhwc != 0).sum()
+    else:
+        assert (np.abs(got[:, :24]) == 127).sum() >= 6
+
+
+@pytest.mark.parametrize("shape", [(40, 24, 3, 3), (37, 20, 1, 1),
+                                   (33, 136, 1, 1), (64, 64, 5, 3)])
+def test_pack_weight_round_trips(shape):
+    """Kernel I's weight operand: (Cop, kh*kw*Cp), Co padded to a
+    multiple of 8 and Cin to one of 16 with zeros; it unpacks to
+    ``w_int8``."""
+    w_q, _ = quant.quantize_weight(torch.from_numpy(
+        _rng(12).normal(size=shape).astype(np.float32)))
+    co, c, kh, kw = shape
+    cop, cp = -(-co // 8) * 8, -(-c // 16) * 16
+    packed = quant.pack_weight(w_q)
+    assert packed.shape == (cop, kh * kw * cp) and packed.is_contiguous()
+    assert torch.equal(quant.unpack_weight(packed, co, c, kh, kw), w_q)
+    full = quant.unpack_weight(packed, cop, cp, kh, kw)
+    assert not full[co:].any() and not full[:, c:].any()
+    assert int((packed != 0).sum()) == int((w_q != 0).sum())
+
+
+# (kernel, stride, padding, dilation[, Co]); amax at max|x|, below it
+# (clips), and 0
 CONVS = [(3, 1, 1, 1), (3, 1, 2, 2), (3, 1, 4, 4), (3, 2, 1, 1),
-         (1, 1, 0, 1), (1, 2, 0, 1)]
+         (1, 1, 0, 1), (1, 2, 0, 1), (1, 1, 0, 1, 37), (3, 2, 1, 1, 37)]
 
 
-@pytest.mark.parametrize("k,s,p,d", CONVS,
-                         ids=[f"{k}x{k}-s{s}-d{d}" for k, s, _, d in CONVS])
+@pytest.mark.parametrize("k,s,p,d,co", [c if len(c) == 5 else c + (40,)
+                                        for c in CONVS],
+                         ids=[f"{c[0]}x{c[0]}-s{c[1]}-d{c[3]}"
+                              + (f"-co{c[4]}" if len(c) > 4 else "")
+                              for c in CONVS])
 @pytest.mark.parametrize("amax_scale", [1.0, 0.25, 0.0])
-def test_int8_conv_matches_jax(k, s, p, d, amax_scale):
+def test_int8_conv_matches_jax(k, s, p, d, co, amax_scale):
     rng = _rng(2)
     x = rng.normal(size=(2, 13, 17, 24)).astype(np.float32)
-    w = rng.normal(size=(40, 24, k, k)).astype(np.float32)
+    w = rng.normal(size=(co, 24, k, k)).astype(np.float32)
     amax = np.float32(np.abs(x).max() * amax_scale)
     w_q, w_s = quant.quantize_weight(torch.from_numpy(w))
     got = quant.int8_conv(torch.from_numpy(x).permute(0, 3, 1, 2), w_q, w_s,
@@ -183,6 +263,38 @@ def test_int8_dense_matches_jax():
             jnp.asarray(x), jnp.asarray(w.T), jnp.float32(amax))
     np.testing.assert_allclose(got.numpy(), np.asarray(compiled),
                                rtol=2 ** -22, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(7, 136), (2, 3, 5, 136),
+                                   (4, 6, 136)],
+                         ids=["2d", "4d-nhwc-view", "3d-strided"])
+def test_int8_dense_shapes_match_jax(shape):
+    """``int8_dense`` (kernels Q and I as a one-tap conv over the rows) on
+    2-D, 4-D (a channels-last view of an NCHW map, as MiT's layers get
+    it) and 3-D strided (a transposed view) inputs, Co = 21 (no multiple
+    of 8), bit for bit against the JAX arithmetic on the JAX scales."""
+    rng = _rng(13)
+    x = rng.normal(size=shape).astype(np.float32)
+    w = rng.normal(size=(21, 136)).astype(np.float32)
+    amax = np.float32(np.abs(x).max() * 0.5)
+    xt = torch.from_numpy(x)
+    if len(shape) == 4:
+        xt = xt.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    elif len(shape) == 3:
+        xt = xt.transpose(0, 1).contiguous().transpose(0, 1)
+    assert torch.equal(xt, torch.from_numpy(x))
+    w_q, w_s = quant.quantize_weight(torch.from_numpy(w))
+    copies = quant.layout_copies
+    got = quant.int8_dense(xt, w_q, w_s, torch.tensor(amax))
+    assert quant.layout_copies == copies
+    jw_q, jw_s = jax.jit(jax_quant.quantize_weight)(jnp.asarray(w.T))
+    xq, sx = jax.jit(jax_quant.quantize_act)(jnp.asarray(x),
+                                             jnp.float32(amax))
+    sums = np.asarray(xq).astype(np.int64) @ np.asarray(jw_q).astype(
+        np.int64)
+    want = sums.astype(np.float32) * (np.asarray(sx) * np.asarray(jw_s))
+    assert got.shape == shape[:-1] + (21,)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_bf16_output_is_the_rounded_float32():
