@@ -135,6 +135,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
              on the same weights (stages and the share of its labelled
              pixels the int8 round labelled). Every earlier phase runs at
              its full depth.
+ 11. parallel  data parallelism over torch.distributed at the recipe's
+             full width (configs/gtav/source_target.yaml, TPU.DENSE_CONV_MODE
+             pallas, the synthetic GTAV and Cityscapes trees of phase
+             train, round 1 at step 0 over the 8 images, 3 steps,
+             validation on 2), each run a process of its own (this script
+             with --parallel-child), joined with a timeout: (a) one rank
+             over NCCL (RANK 0, WORLD_SIZE 1) beside the same run with no
+             group: masks and indicators byte-identical, losses within
+             1e-5 relative, launches equal (A 2, B 64, C 250 + 150 + 150),
+             ms/step of each on one device-resident batch between CUDA
+             events; (b) two ranks sharing the card over gloo
+             (device cuda:0, SOLVER.BATCH_SIZE 2 each): each scores 4
+             images (A 1, B 32), masks byte-identical with (a)'s,
+             bit-identical parameters after 3 steps, one mIoU, checkpoints
+             and metrics.jsonl by rank 0 alone, last.ckpt loading with
+             strict=True into a model built in one process, ms/step of
+             each rank; (c) spatial_region_score over (b)'s two ranks on a
+             1024x2048 map (19 classes, a 64-wide embedding, 512 rows and
+             one kernel-B launch a rank) against floating_region_score of
+             the whole map within 1e-6, for both purity pairs. The phase's
+             launches join the kernels line.
 
 Prints the kernels JSON line, the card's name and power limit
 (nvidia-smi), and as the last line
@@ -2852,6 +2873,358 @@ def phase_int8(torch, args, report):
     report["int8_quant"]["launches"] = quant_total
 
 
+# ---------------------------------------------------------------------------
+# Phase parallel: data parallelism over torch.distributed
+# ---------------------------------------------------------------------------
+
+PARALLEL_STEPS = 3  # phase parallel: train steps of each run
+PARALLEL_TIMEOUT = 420  # s, each run of phase parallel (its processes)
+# the command of a phase-parallel process
+CHILD = [sys.executable, str(REPO / "chip_smoke.py"), "--parallel-child"]
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def param_digest(model) -> str:
+    """sha256 of the model's parameters' bytes, in order."""
+    import hashlib
+    digest = hashlib.sha256()
+    for p in model.parameters():
+        digest.update(p.detach().float().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def spatial_check(torch, seed: int) -> dict:
+    """Phase parallel (c), on each rank of the group: the rank's 512 rows
+    of a 1024x2048 map (19 classes, a 64-wide ball embedding, kernel B on
+    its rows) through ``spatial_region_score``, held against
+    ``floating_region_score`` of the whole map within 1e-6, for both
+    purity pairs of ``tests/test_parallel.py``; ms of each."""
+    import torch.distributed as dist
+    from halo_tpu_torch.active import cuda_radius
+    from halo_tpu_torch.active.scoring import (floating_region_score,
+                                               spatial_region_score)
+    rank, n = dist.get_rank(), dist.get_world_size()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    h, w = 1024, 2048
+    logits = torch.randn((h, w, 19), generator=gen, device=DEVICE) * 3.0
+    embed = ball_points(torch, (h, w, 64), gen).float()
+    rows = slice(rank * h // n, (rank + 1) * h // n)
+    mine = (logits[rows].contiguous(), embed[rows].contiguous())
+    out = {}
+    for pur, unc in (("radius", "entropy"), ("ripu", "pixel_entropy")):
+        opts = dict(unc_type=unc, pur_type=pur, size=3, num_classes=19,
+                    normalize=True)
+        before = cuda_radius.launches
+        got = spatial_region_score(*mine, group=dist.group.WORLD, **opts)
+        launches = cuda_radius.launches - before
+        want = floating_region_score(logits, embed, **opts)
+        err = max(float((g - x[rows]).abs().max()) for g, x in zip(got, want))
+
+        def timed(fn):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(5):
+                fn()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / 5
+
+        out[pur] = {"max_abs_err": err, "radius_launches": launches,
+                    "rows": got[0].shape[0],
+                    "ms": timed(lambda: spatial_region_score(
+                        *mine, group=dist.group.WORLD, **opts)),
+                    "whole_ms": timed(lambda: floating_region_score(
+                        logits, embed, **opts))}
+    return out
+
+
+def parallel_child(spec_path: str) -> int:
+    """One run of phase parallel in a process of its own: ``train.main``
+    with or without a process group (joined here from the torchrun
+    variables the parent set, with the spec's device and backend); the
+    launch counts of the run, its losses, checkpoints written and a digest
+    of the parameters; ms/step on one device-resident batch between CUDA
+    events and by ``StepTimer``; with a group of 2, phase parallel (c).
+    Writes its results as JSON to the spec's 'out'."""
+    import statistics
+
+    import torch
+    spec = json.loads(Path(spec_path).read_text())
+    sys.path.insert(0, str(REPO))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from halo_tpu_torch import kernels, train
+    from halo_tpu_torch.active import cuda_radius, cuda_select
+    from halo_tpu_torch.engine import learners
+    from halo_tpu_torch.ops import dilated_conv as dc
+    from halo_tpu_torch.parallel import mesh
+    from halo_tpu_torch.utils.profiling import StepTimer
+
+    if DEVICE == "cuda":
+        kernels.load()
+    # the same dropout draws in every run (torch seeds each process's
+    # generators at random); rank r > 0 then offsets them by r
+    torch.manual_seed(spec["seed"])
+    saved = []
+    save = learners.save_checkpoint
+
+    def record(model, path, **kwargs):
+        saved.append(Path(path).name)
+        return save(model, path, **kwargs)
+
+    learners.save_checkpoint = record
+    device = spec["device"]
+    if spec["group"]:
+        device = mesh.init_from_env(device, spec["backend"])
+    try:
+        dc.launches_fwd = dc.launches_dx = dc.launches_dk = 0
+        cuda_radius.launches = cuda_select.launches = 0
+        stages = {}
+        learner = train.main(spec["argv"], device=device,
+                             stage_seconds=stages, backend=spec["backend"])
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        out = {"launches": {"fwd": dc.launches_fwd, "dx": dc.launches_dx,
+                            "dk": dc.launches_dk,
+                            "radius_map": cuda_radius.launches,
+                            "greedy_picks": cuda_select.launches},
+               "history": learner.history, "saved": list(saved),
+               "best_miou": learner.best_miou,
+               "params": param_digest(learner.model),
+               "step_ms": [(a + b) * 1e3 for a, b in learner.step_seconds],
+               "stages": stages, "num_devices": learner.num_devices}
+        batches = fixed_batches(learner)
+        out["fixed_ms"] = fixed_batch_ms(torch, learner, batches)
+        timer = StepTimer()
+        for _ in range(3):
+            timer.start()
+            timer.stop(block_on=learner.train_step(batches))
+        out["step_timer_ms"] = timer.avg_s * 1e3
+        out["fixed_median_ms"] = statistics.median(out["fixed_ms"])
+        del batches, learner
+        if spec.get("spatial") is not None:
+            out["spatial"] = spatial_check(torch, spec["spatial"])
+    finally:
+        if spec["group"]:
+            mesh.destroy()
+    Path(spec["out"]).write_text(json.dumps(out))
+    return 0
+
+
+def run_children(root: Path, name: str, specs: list) -> list:
+    """Start one process a spec (each with its torchrun variables, or none),
+    join them within ``PARALLEL_TIMEOUT``; a process that times out is
+    killed and fails the phase, as does one that exits non-zero. Returns
+    their results."""
+    import os
+    from halo_tpu_torch.parallel.launch import TORCHRUN_VARS, run_processes
+    port = free_port()
+    commands, envs = [], []
+    for i, spec in enumerate(specs):
+        spec["out"] = str(root / f"{name}_{i}.json")
+        path = root / f"{name}_{i}.spec.json"
+        path.write_text(json.dumps(spec))
+        env = {k: v for k, v in os.environ.items()
+               if k not in TORCHRUN_VARS}
+        if spec["group"]:
+            env.update(RANK=str(spec["rank"]), WORLD_SIZE=str(spec["world"]),
+                       LOCAL_RANK=str(spec["rank"]), MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port))
+        commands.append(CHILD + [str(path)])
+        envs.append(env)
+    try:
+        run_processes(commands, envs, [str(root / f"{name}_{i}.log")
+                                       for i in range(len(specs))],
+                      PARALLEL_TIMEOUT, cwd=str(REPO))
+    except RuntimeError as e:
+        raise AssertionError(f"parallel {name}: {e}") from None
+    return [json.loads(Path(s["out"]).read_text()) for s in specs]
+
+
+def mask_bytes(save_dir: Path) -> dict:
+    """{relative path: bytes} of a run's mask PNGs and of its indicators'
+    bool maps."""
+    from halo_tpu_torch.data.masks import load_indicator
+    out = {}
+    for path in sorted((save_dir / "gtMask").rglob("*.png")):
+        out[str(path.relative_to(save_dir))] = path.read_bytes()
+    for path in sorted((save_dir / "gtIndicator").rglob("*.pth")):
+        ind = load_indicator(str(path))
+        out[str(path.relative_to(save_dir))] = b"".join(
+            ind[k].tobytes() for k in sorted(ind))
+    return out
+
+
+def phase_parallel(torch, args, report):
+    """Data parallelism over torch.distributed at the recipe's full width
+    (configs/gtav/source_target.yaml, TPU.DENSE_CONV_MODE pallas, round 1
+    at step 0 over the 8 synthetic 1024x2048 images, 3 steps, validation on
+    2 images), each run a process of its own: (a) one rank over NCCL
+    beside the same run with no group; (b) two ranks sharing the one card
+    over gloo; (c) spatial_region_score over (b)'s two ranks."""
+    import statistics
+
+    from halo_tpu_torch.engine.state import load_state_dict_file
+    from halo_tpu_torch.models import build_segmentor
+    from halo_tpu_torch.utils.misc import parse_args
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        data = root / "datasets"
+        write_gtav(data, 4, args.seed)
+        write_cityscapes(data, args.images, args.seed)
+        write_cityscapes(data, 2, args.seed + 1, split="val")
+
+        def argv(name, world):
+            return ["-cfg", str(CONFIG), "TPU.DENSE_CONV_MODE", "pallas",
+                    "MODEL.WEIGHTS", "", "resume", "",
+                    "ACTIVE.SELECT_ITER", "[0]",
+                    "SOLVER.NUM_ITER", str(PARALLEL_STEPS * world),
+                    "TPU.VAL_INTERVAL", str(PARALLEL_STEPS),
+                    "TPU.DATASET_DIR", str(data), "OUTPUT_DIR", str(root),
+                    "NAME", name, "SEED", str(args.seed)]
+
+        # (a) one rank over NCCL, beside the same run with no group
+        plain, = run_children(root, "a_plain", [
+            {"group": False, "device": DEVICE, "backend": None,
+             "argv": argv("a_plain", 1), "seed": args.seed}])
+        one, = run_children(root, "a_nccl", [
+            {"group": True, "rank": 0, "world": 1, "device": None,
+             "backend": None, "argv": argv("a_nccl", 1),
+             "seed": args.seed}])
+        if mask_bytes(root / "a_plain") != mask_bytes(root / "a_nccl") \
+                or not mask_bytes(root / "a_plain"):
+            raise AssertionError("(a): the one-rank group's masks differ "
+                                 "from the run's without a group")
+        worst = 0.0
+        for got, want in zip(one["history"], plain["history"]):
+            for k, v in want.items():
+                if k.startswith(("loss", "negative", "consistency")):
+                    worst = max(worst, abs(got[k] - v) / abs(v))
+        if (len(one["history"]) != PARALLEL_STEPS or worst > 1e-5
+                or one["launches"] != plain["launches"]
+                or one["num_devices"] != 1):
+            raise AssertionError(f"(a): losses {one['history']} against "
+                                 f"{plain['history']} (worst rel {worst}); "
+                                 f"launches {one['launches']} against "
+                                 f"{plain['launches']}")
+        n_conv = 25
+        want = {"fwd": n_conv * (2 * PARALLEL_STEPS + 2 + 2),
+                "dx": 2 * n_conv * PARALLEL_STEPS,
+                "dk": 2 * n_conv * PARALLEL_STEPS, "radius_map": 64,
+                "greedy_picks": 2}
+        if one["launches"] != want:
+            raise AssertionError(f"(a): launches {one['launches']}, want "
+                                 f"{want}")
+        print(f"parallel (a): one rank over NCCL against no group: masks "
+              f"byte-identical, losses within {worst:.2e} relative, "
+              f"launches {one['launches']} in both; ms/step on a fixed "
+              f"device-resident batch (CUDA events, median of 5): no group "
+              f"{plain['fixed_median_ms']:.2f}, NCCL group of one "
+              f"{one['fixed_median_ms']:.2f} (the collectives and the "
+              f"synced BN on one card, across processes: "
+              f"{one['fixed_median_ms'] - plain['fixed_median_ms']:+.2f}); "
+              f"StepTimer {plain['step_timer_ms']:.2f} / "
+              f"{one['step_timer_ms']:.2f}; {card_line()}", flush=True)
+
+        # (b) two ranks sharing the card over gloo, SOLVER.BATCH_SIZE 2
+        # each; (c) spatial_region_score over the same two ranks
+        ranks = run_children(root, "b_gloo", [
+            {"group": True, "rank": r, "world": 2, "device": f"{DEVICE}:0",
+             "backend": "gloo", "argv": argv("b_gloo", 2),
+             "seed": args.seed, "spatial": args.seed} for r in range(2)])
+        for r, out in enumerate(ranks):
+            counts = out["launches"]
+            if (counts["greedy_picks"] != 1 or counts["radius_map"] != 32
+                    or counts["dx"] != 2 * n_conv * PARALLEL_STEPS
+                    or counts["fwd"] != n_conv * (2 * PARALLEL_STEPS + 2)
+                    or out["num_devices"] != 2):
+                raise AssertionError(f"(b) rank {r}: launches {counts}")
+        if mask_bytes(root / "b_gloo") != mask_bytes(root / "a_nccl"):
+            raise AssertionError("(b): the two ranks' masks differ from "
+                                 "(a)'s")
+        if ranks[0]["params"] != ranks[1]["params"]:
+            raise AssertionError("(b): the ranks' parameters differ")
+        if ranks[0]["best_miou"] != ranks[1]["best_miou"]:
+            raise AssertionError(f"(b): mIoU {ranks[0]['best_miou']} / "
+                                 f"{ranks[1]['best_miou']}")
+        if ranks[0]["history"] != ranks[1]["history"]:
+            raise AssertionError("(b): the ranks logged other losses")
+        if ranks[1]["saved"] or ranks[0]["saved"] != [
+                "model_before_round_1.ckpt", "best_mIoU.ckpt", "last.ckpt"]:
+            raise AssertionError(f"(b): checkpoints written: rank 0 "
+                                 f"{ranks[0]['saved']}, rank 1 "
+                                 f"{ranks[1]['saved']}")
+        lines = (root / "b_gloo" / "metrics.jsonl").read_text().splitlines()
+        recs = [json.loads(line) for line in lines]
+        if ([r["step"] for r in recs if "step" in r]
+                != list(range(PARALLEL_STEPS))
+                or sum("mIoU" in r for r in recs) != 1):
+            raise AssertionError(f"(b): metrics.jsonl {recs}")
+        _, cfg = parse_args(argv("b_gloo", 2))
+        model = build_segmentor(cfg, device=DEVICE)
+        model.load_state_dict(load_state_dict_file(
+            str(root / "b_gloo" / "last.ckpt")), strict=True)
+        if param_digest(model) != ranks[0]["params"]:
+            raise AssertionError("(b): last.ckpt does not hold the ranks' "
+                                 "parameters")
+        del model
+        release(torch)
+        print(f"parallel (b): two ranks over gloo, 4 images each scored "
+              f"(A {ranks[0]['launches']['greedy_picks']}, B "
+              f"{ranks[0]['launches']['radius_map']} a rank), masks "
+              f"byte-identical with (a)'s; parameters identical after "
+              f"{PARALLEL_STEPS} steps (sha256 {ranks[0]['params'][:16]}); "
+              f"mIoU {ranks[0]['best_miou']:.4f} on both; checkpoints and "
+              f"metrics.jsonl by rank 0 alone; last.ckpt loads with "
+              f"strict=True into a one-process model", flush=True)
+        for r, out in enumerate(ranks):
+            print(f"parallel (b) rank {r} of two processes sharing one card "
+                  f"(not a scaling figure): ms/step on a fixed batch, CUDA "
+                  f"events, median {out['fixed_median_ms']:.2f} of "
+                  + json.dumps([round(t, 2) for t in out["fixed_ms"]])
+                  + f"; StepTimer {out['step_timer_ms']:.2f}; wall ms/step "
+                  + json.dumps([round(t, 1) for t in out["step_ms"]])
+                  + f"; launches {out['launches']}", flush=True)
+        for pur in ("radius", "ripu"):
+            errs = [out["spatial"][pur]["max_abs_err"] for out in ranks]
+            b = [out["spatial"][pur]["radius_launches"] for out in ranks]
+            rows = [out["spatial"][pur]["rows"] for out in ranks]
+            if max(errs) > 1e-6 or rows != [512, 512] or b != (
+                    [1, 1] if pur == "radius" else [0, 0]):
+                raise AssertionError(f"(c) {pur}: errors {errs}, rows "
+                                     f"{rows}, kernel B {b}")
+            print(f"parallel (c) spatial_region_score {pur}: 512 rows a "
+                  f"rank, max |diff| to the whole map "
+                  f"{max(errs):.3e}; kernel B launches {b}; ms "
+                  + json.dumps([round(out["spatial"][pur]["ms"], 3)
+                                for out in ranks])
+                  + " against the whole map on each rank "
+                  + json.dumps([round(out["spatial"][pur]["whole_ms"], 3)
+                                for out in ranks])
+                  + f" (two processes sharing one card); {card_line()}",
+                  flush=True)
+        # this phase's launches join the kernels line
+        for out in [one] + ranks:
+            counts = out["launches"]
+            report["greedy_picks"]["launches"] += counts["greedy_picks"]
+            report["radius_map"]["launches"] += counts["radius_map"]
+            report["dilated_conv3x3"]["launches"] += (counts["fwd"]
+                                                      + counts["dx"])
+            report["dilated_conv3x3_wgrad"]["launches"] += counts["dk"]
+        print("parallel: phase time in the processes, s: " + json.dumps(
+            {k: round(v, 2) for k, v in ranks[0]["stages"].items()}),
+            flush=True)
+
+
 KERNELS = ("greedy_picks", "radius_map", "dilated_conv3x3",
            "dilated_conv3x3_wgrad", "int8_conv", "int8_quant")
 
@@ -2860,12 +3233,16 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--images", type=int, default=8)
+    parser.add_argument("--parallel-child", metavar="SPEC.json",
+                        help=argparse.SUPPRESS)  # a process of phase parallel
     parser.add_argument("--profile", metavar="TRACE.json",
                         help="trace the round, and 3 train steps in each "
                         "conv mode, with torch.profiler; write the chrome "
                         "traces here (and beside it) and print the device "
                         "busy share and the top kernels")
     args = parser.parse_args()
+    if args.parallel_child:
+        return parallel_child(args.parallel_child)
 
     import torch
     if not torch.cuda.is_available():
@@ -2905,6 +3282,7 @@ def main() -> int:
         phase_families(torch, args, report)
         phase_acdc(torch, args, report)
         phase_int8(torch, args, report)
+        phase_parallel(torch, args, report)
     print(json.dumps({"kernels": [report[k] for k in KERNELS]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

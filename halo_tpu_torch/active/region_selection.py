@@ -15,10 +15,17 @@ image copy to the device; each image's score map is
 ``jax.random.uniform(PRNGKey(seed), (H, W))`` bit for bit (``ops/prng``),
 its seed a fixed mix of (``SEED``, round, image index in the sweep) as
 the JAX package mixes it, so the arm's masks are the JAX package's. The
-index is ``batch_no * TPU.ACTIVE_BATCH + b``, as in the JAX sweep, whose
-loader groups batches by native size and pads each size's last batch at
-its end; the port's sweep loader (``data.build.build_active_loader``)
-forms the same batches without the padding.
+index is ``batch_no * global batch + shard offset + b``, as in the JAX
+sweep, whose loader groups batches by native size and pads each size's
+last batch at its end; the port's sweep loader
+(``data.build.build_active_loader``) forms the same batches without the
+padding and lists each image's index (``SizeGroupedBatches.positions``).
+The ``ACTIVE.VIZ_MASK`` plots pick images by the same index.
+
+Data parallel: each process scores the images of its slice of every
+global batch and writes their masks (the writers are disjoint); the round
+ends with a barrier after every process's writes are durable, and the
+returned counts are summed over the processes.
 
 The port runs eagerly, so it needs no compiled-program cache and no padding
 of the last batch.
@@ -40,6 +47,7 @@ from ..device import resolve_device
 from ..engine.steps import make_forward
 from ..ops import prng
 from ..ops.resize import resize_bilinear
+from ..parallel import multihost
 from .scoring import fused_upsample_region_score
 from .selection import cuda_select_pixels_to_label_batch
 
@@ -60,10 +68,12 @@ def _persist(mask, active, selected, mask_path, ind_path):
 def region_selection(cfg, model, active_loader, round_number: int,
                      progress: bool = True, device=None,
                      stage_seconds: Optional[Dict[str, float]] = None):
-    """Run one acquisition round over ``active_loader``; returns
-    ``{'images', 'picked', 'labeled_px'}``. With ``ACTIVE.VIZ_MASK`` the
-    round also plots image, score and mask of 20 fixed pseudo-random image
-    indices under ``SAVE_DIR/viz``.
+    """Run one acquisition round over ``active_loader`` (a
+    ``data.build.build_active_loader`` loader); returns
+    ``{'images', 'picked', 'labeled_px'}``, summed over the processes of
+    a data-parallel run. With ``ACTIVE.VIZ_MASK`` the round also plots
+    image, score and mask of 20 fixed pseudo-random image indices under
+    ``SAVE_DIR/viz``.
 
     device: where the round runs — CUDA unless the caller passes another
     (``model`` must already live there). stage_seconds: when a dict is
@@ -121,7 +131,12 @@ def region_selection(cfg, model, active_loader, round_number: int,
         clock["t"] = now
 
     stats = {"images": 0, "picked": 0, "labeled_px": 0}
-    sweep_batch = int(cfg.TPU.ACTIVE_BATCH)
+
+    def position(batch_no, b):
+        """Image ``b`` of batch ``batch_no``'s index in the sweep (the JAX
+        package's global index)."""
+        return active_loader.batch_sampler.positions[batch_no][b]
+
     io_pool = ThreadPoolExecutor(max_workers=4)
     io_futures = []
     try:
@@ -155,7 +170,7 @@ def region_selection(cfg, model, active_loader, round_number: int,
             with torch.no_grad():
                 scores = [
                     prng.uniform(random_arm_seed(
-                        cfg.SEED, round_number, batch_no * sweep_batch + b),
+                        cfg.SEED, round_number, position(batch_no, b)),
                         sizes[b], device=dev) if random_score
                     else fused_upsample_region_score(
                         logits[b], embed[b] if needs_embed else None,
@@ -193,7 +208,7 @@ def region_selection(cfg, model, active_loader, round_number: int,
                 io_futures.append(io_pool.submit(
                     _persist, mask_np, active_np, selected_np,
                     batch["path_to_mask"][b], batch["path_to_indicator"][b]))
-                if stats["images"] in viz_list:
+                if position(batch_no, b) in viz_list:
                     viz(np.asarray(batch["img"][b], np.float32), sizes[b],
                         scores[b], mask_np, batch["name"][b])
                 stats["images"] += 1
@@ -212,4 +227,6 @@ def region_selection(cfg, model, active_loader, round_number: int,
         io_pool.shutdown(wait=True)
     for f in io_futures:
         f.result()  # surface persist failures
-    return stats
+    # every process's masks durable before any process's loaders read them
+    multihost.sync_hosts(f"active_round_{round_number}")
+    return multihost.sum_over_hosts(stats)

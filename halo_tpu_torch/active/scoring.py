@@ -14,6 +14,7 @@ from __future__ import annotations
 import math
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops.resize import _contract_w, _interp_matrix, device_matrix
 from . import cuda_radius
@@ -46,10 +47,14 @@ def box_filter(x, size: int):
     return out
 
 
-def normalize_map(x):
-    """Global min-max normalization."""
-    lo = torch.min(x)
-    hi = torch.max(x)
+def _min_max(x):
+    return torch.min(x), torch.max(x)
+
+
+def normalize_map(x, min_max=_min_max):
+    """Global min-max normalization; ``min_max(x) -> (lo, hi)`` gives the
+    extremes (of the whole map when ``x`` is a shard of it)."""
+    lo, hi = min_max(x)
     return (x - lo) / (hi - lo)
 
 
@@ -74,25 +79,26 @@ def entropy_from_logits(x, precise: bool = False):
     return (torch.log(s) - t / s) / _LOG19
 
 
-def region_impurity(predict, num_classes: int, size: int):
+def region_impurity(predict, num_classes: int, size: int, box=box_filter):
     """Per-window class-histogram entropy / log(K) and window pixel count.
     predict: (H, W) int class map. Returns (impurity, count), each (H, W).
+    ``box`` is the window sum (``box_filter``, or a sharded one).
     """
     one_hot = torch.nn.functional.one_hot(
         predict.long(), num_classes).to(torch.float32)
-    summary = box_filter(one_hot, size)                        # (H, W, K)
+    summary = box(one_hot, size)                               # (H, W, K)
     count = torch.sum(summary, dim=-1, keepdim=True)
-    dist = summary / count
-    imp = torch.sum(-dist * torch.log(dist + 1e-6), dim=-1) / math.log(
+    freq = summary / count
+    imp = torch.sum(-freq * torch.log(freq + 1e-6), dim=-1) / math.log(
         num_classes)
     return imp, count[..., 0]
 
 
-def _quantize_from_radius(radius, K: int):
+def _quantize_from_radius(radius, K: int, min_max=_min_max):
     """Quantize an (H, W) radius map into K inverted-normalized bins."""
     eps = 1e-5
-    radius = normalize_map(radius)
-    inv = normalize_map(1.0 - radius)
+    radius = normalize_map(radius, min_max)
+    inv = normalize_map(1.0 - radius, min_max)
     q = torch.clamp(inv * K - 0.5, -0.5 + eps, K - 0.5 - eps)
     return torch.round(q).to(torch.int32)
 
@@ -133,24 +139,26 @@ def _pixel_maps(x, embed, ground_truth, *, unc_type: str, pur_type: str,
 
 
 def _score_tail(pix, shape, device, *, unc_type: str, pur_type: str,
-                size: int, num_classes: int, K: int, normalize: bool):
+                size: int, num_classes: int, K: int, normalize: bool,
+                box=box_filter, min_max=_min_max):
     """Windowed uncertainty/impurity + normalize + combine from per-pixel
-    maps; shared by both scorers."""
+    maps; shared by the scorers. ``box`` and ``min_max`` are the window
+    sum and the extremes (of the whole map, for a shard of it)."""
     if unc_type == "pixel_entropy":
         unc = pix["pixel_entropy"]
     elif unc_type == "entropy":
-        unc = box_filter(pix["pixel_entropy"], size)
+        unc = box(pix["pixel_entropy"], size)
     elif unc_type == "oracle_acc":
-        unc = box_filter(pix["one_minus_p_true"], size)
+        unc = box(pix["one_minus_p_true"], size)
     else:
         # 'none' and the reference's dead 'hyperbolic'/'certainty' options
         unc = torch.zeros(shape, dtype=torch.float32, device=device)
 
     if pur_type in ("ripu", "oracle_ripu"):
-        imp, count = region_impurity(pix["predict"], num_classes, size)
+        imp, count = region_impurity(pix["predict"], num_classes, size, box)
     elif pur_type == "hyper":
         imp, count = region_impurity(
-            _quantize_from_radius(pix["radius"], K), K, 3)
+            _quantize_from_radius(pix["radius"], K, min_max), K, 3, box)
     elif pur_type == "radius":
         imp, count = pix["radius"], None
     elif pur_type == "euc_norm":
@@ -165,8 +173,8 @@ def _score_tail(pix, shape, device, *, unc_type: str, pur_type: str,
     if count is not None:
         unc = unc / count
     if normalize:
-        unc = normalize_map(unc)
-        imp = normalize_map(imp)
+        unc = normalize_map(unc, min_max)
+        imp = normalize_map(imp, min_max)
     return imp * unc, imp, unc
 
 
@@ -238,3 +246,80 @@ def fused_upsample_region_score(logits_in, embed_in=None, native_hw=None,
     return _score_tail(pix, (H, W), logits_in.device, unc_type=unc_type,
                        pur_type=pur_type, size=size, num_classes=num_classes,
                        K=K, normalize=normalize)
+
+
+def _sharded_box(group, rank: int, n: int):
+    """``box_filter`` over a shard of the map's rows: r = size // 2 rows
+    from each neighbour (zeros beyond the map's top and bottom, as the
+    unsharded filter pads) are put around the shard, filtered, and cut
+    off again. The halos travel in one all-reduce (SUM) of a zeroed
+    (n, 2, r, W, ...) buffer into which each rank writes its first and
+    last r rows: exact, since x + 0 = x."""
+
+    def box(x, size):
+        r = size // 2
+        if r == 0:
+            return box_filter(x, size)
+        if x.shape[0] < r:
+            raise ValueError(f"a shard of {x.shape[0]} rows is thinner "
+                             f"than the window's halo of {r}")
+        buf = x.new_zeros((n, 2, r) + tuple(x.shape[1:]))
+        buf[rank, 0] = x[:r]
+        buf[rank, 1] = x[-r:]
+        dist.all_reduce(buf, group=group)
+        above = buf[rank - 1, 1] if rank > 0 else torch.zeros_like(x[:r])
+        below = (buf[rank + 1, 0] if rank < n - 1
+                 else torch.zeros_like(x[:r]))
+        ext = torch.cat([above, x, below], dim=0)
+        return box_filter(ext, size)[r:r + x.shape[0]]
+
+    return box
+
+
+def _global_min_max(group):
+    """The extremes of the whole map from each rank's shard: one
+    all-reduce (MAX) of (max, -min)."""
+
+    def min_max(x):
+        ext = torch.stack([torch.max(x), -torch.min(x)]).float()
+        dist.all_reduce(ext, op=dist.ReduceOp.MAX, group=group)
+        return (-ext[1]).to(x.dtype), ext[0].to(x.dtype)
+
+    return min_max
+
+
+def spatial_region_score(logits, embed=None, ground_truth=None, *, group,
+                         unc_type: str = "entropy", pur_type: str = "radius",
+                         size: int = 3, num_classes: int = 19, K: int = 100,
+                         normalize: bool = True, c: float = 1.0):
+    """``floating_region_score`` with the map's H axis sharded over the
+    ranks of ``group`` (port of the JAX package's
+    ``spatial_region_score``, whose H is sharded over the mesh's ``model``
+    axis): each rank passes its contiguous H/n rows of logits (h, W, K),
+    embedding (h, W, C) and ground truth (h, W) and receives its rows of
+    (score, impurity, uncertainty). The per-pixel maps are the rank's own
+    (kernel B on its rows on a CUDA tensor); the (2r+1)^2 window sums
+    take r halo rows from each neighbour, the map's top and bottom rows
+    see the zero padding of the unsharded map, and the min-max
+    normalisations read the whole map's extremes. The sums see the same
+    operands in the same order, so the rows equal the unsharded ones.
+    Raises ValueError when H is not divisible by the group's size (the
+    ranks' row counts differ). Every collective is an all-reduce on the
+    logits' device."""
+    n = dist.get_world_size(group)
+    rank = dist.get_rank(group)
+    rows = torch.tensor([logits.shape[0], -logits.shape[0]],
+                        dtype=torch.float32, device=logits.device)
+    dist.all_reduce(rows, op=dist.ReduceOp.MAX, group=group)
+    if int(rows[0]) != -int(rows[1]):
+        raise ValueError(
+            f"spatial_region_score: the ranks hold {-int(rows[1])} to "
+            f"{int(rows[0])} rows: H is not divisible by the group's size "
+            f"{n}")
+    pix = _pixel_maps(logits, embed, ground_truth, unc_type=unc_type,
+                      pur_type=pur_type, c=c)
+    return _score_tail(pix, tuple(logits.shape[:2]), logits.device,
+                       unc_type=unc_type, pur_type=pur_type, size=size,
+                       num_classes=num_classes, K=K, normalize=normalize,
+                       box=_sharded_box(group, rank, n),
+                       min_max=_global_min_max(group))

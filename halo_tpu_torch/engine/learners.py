@@ -5,7 +5,7 @@
 ``_CalibImages`` :607 (``CalibImages``), ``TestLearner`` :631-813,
 ``build_learner`` :825).
 
-One device. A ``Learner`` owns the model (in train mode; FrozenBatchNorm
+A ``Learner`` owns the model (in train mode; FrozenBatchNorm
 stays frozen), the two-group SGD and its schedule, the loaders, the
 validation cadence, checkpoints, ``metrics.jsonl``, ``resume_full`` and
 preemption; ``_ActiveMixin`` runs the acquisition rounds at
@@ -24,6 +24,21 @@ split before it scores, unless the restored checkpoint is calibrated and
 ``TPU.QUANT_RECALIBRATE`` is off. With ``TPU.QUANT_SWEEP`` the rounds'
 sweep forward runs an int8 twin of the training model, recalibrated every
 round; training stays float.
+
+Data parallel: in a process group (``parallel.mesh.init_from_env``, one
+process a device) a run of N ranks computes what the JAX learner computes
+with ``TPU.DATA_PARALLEL N``: rank 0's seed and weights on every rank,
+global batches of N x ``SOLVER.BATCH_SIZE`` of which each rank reads its
+slice, ``NUM_ITER // N`` steps and rounds at ``SELECT_ITER / N``, live
+BatchNorm over the global batch, losses over the global batch and the
+mean gradient, the sweep's images split over the ranks, validation
+histograms summed over them. Rank 0 alone writes the initial masks,
+checkpoints and ``metrics.jsonl``, each followed by a barrier. Without a
+group the learner runs as one process. ``TPU.SPATIAL_PARALLEL`` other
+than 1 is refused (in the JAX learner it only replicates the work over
+the mesh's ``model`` axis); dropout draws its masks from torch's global
+generator on the device, which every rank but rank 0 reseeds with its
+initial seed + its rank.
 """
 
 from __future__ import annotations
@@ -37,23 +52,30 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from torch.utils.data import DataLoader, Dataset
+from torch.utils.data import Dataset
 
 from ..active.region_selection import region_selection
-from ..data.build import (build_active_loader, build_test_loader,
-                          build_train_loader, build_transform, numpy_collate)
+from ..data.build import (build_active_loader, build_eval_loader,
+                          build_test_loader, build_train_loader,
+                          build_transform)
 from ..data.catalog import DatasetCatalog
 from ..data.datasets import TRAINID2NAME_16, TRAINID2NAME_19
 from ..device import resolve_device
 from ..models import build_segmentor
 from ..models.pretrained import load_pretrained_backbone
 from ..ops import quant as quant_ops
+from ..parallel import collectives, mesh, multihost
 from ..utils.metrics import miou_from_histograms, miou_star
 from .optim import build_optimizer
 from .state import load_module_params, restore_state, save_checkpoint
 from .steps import (make_eval_step, make_forward, make_rich_eval_step,
                     make_train_step)
+
+# Steps between the preemption flag's agreements across the processes of
+# a group (every step in one process).
+_PREEMPT_POLL_STEPS = 10
 
 
 class Learner:
@@ -73,9 +95,24 @@ class Learner:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.debug = bool(cfg.DEBUG)
-        self.num_devices = 1
-        self.seed = (int(cfg.SEED) if cfg.SEED >= 0
-                     else int(time.time()) % (2 ** 31))
+        self.group = mesh.group()
+        self.num_devices = multihost.process_count()
+        self.rank = multihost.process_index()
+        dp = int(cfg.TPU.DATA_PARALLEL)
+        if dp not in (-1, self.num_devices):
+            raise ValueError(
+                f"TPU.DATA_PARALLEL {dp}: this run has {self.num_devices} "
+                "process(es), one a device (the world size); set -1 or "
+                f"{self.num_devices}")
+        if int(cfg.TPU.SPATIAL_PARALLEL) != 1:
+            raise ValueError(
+                f"TPU.SPATIAL_PARALLEL {cfg.TPU.SPATIAL_PARALLEL}: the "
+                "learners run data parallel only (in the JAX learner the "
+                "model axis replicates the work); shard a score map with "
+                "active.scoring.spatial_region_score")
+        seed = (int(cfg.SEED) if cfg.SEED >= 0
+                else int(time.time()) % (2 ** 31))
+        self.seed = multihost.broadcast_seed(seed)
         self.model = build_segmentor(
             cfg, device=self.device,
             generator=torch.Generator().manual_seed(self.seed))
@@ -85,11 +122,16 @@ class Learner:
         if cfg.resume:
             for module in ("feature_extractor", "classifier"):
                 load_module_params(self.model, cfg.resume, module)
+        if self.group is not None:
+            collectives.broadcast_module(self.model, self.group)
+            collectives.convert_sync_batchnorm(self.model, self.group)
+            if self.rank:
+                _offset_dropout_draws(self.device, self.rank)
         self.model.train()
         self.optimizer, self.scheduler, self._lr_at = build_optimizer(
             cfg, self.model, self.num_devices)
         self.train_step = make_train_step(cfg, self.model, self.optimizer,
-                                          self.protocol)
+                                          self.protocol, group=self.group)
         self.eval_step = make_eval_step(cfg, self.model)
         self.step = 0
         self.history: List[Dict] = []
@@ -104,7 +146,7 @@ class Learner:
 
     def _loader(self, is_source: bool):
         return build_train_loader(self.cfg, is_source, self.global_batch(),
-                                  self.seed)
+                                  self.seed, shard=multihost.loader_shard())
 
     def global_batch(self) -> int:
         return self.cfg.SOLVER.BATCH_SIZE * self.num_devices
@@ -135,13 +177,15 @@ class Learner:
         rec = {"step": step, **{k: float(v) for k, v in metrics.items()},
                **self._lr_at(step), "active_round": int(active_round)}
         self.history.append(rec)
-        if step % 50 == 0 or self.debug:
+        if (step % 50 == 0 or self.debug) and multihost.is_coordinator():
             msg = " ".join(f"{k}={v:.4g}" for k, v in rec.items()
                            if k != "step")
             print(f"[{self.protocol}] step {step}: {msg}", flush=True)
         self._append_jsonl(rec)
 
     def _append_jsonl(self, rec):
+        if not multihost.is_coordinator():
+            return
         os.makedirs(self.cfg.SAVE_DIR, exist_ok=True)
         with open(os.path.join(self.cfg.SAVE_DIR, "metrics.jsonl"),
                   "a") as f:
@@ -149,12 +193,18 @@ class Learner:
 
     def _save_checkpoint(self, filename: str, extra: Optional[Dict] = None):
         """Model, optimizer, step and the learner's counters
-        (``active_round``, ``best_miou``) in ``SAVE_DIR/filename``."""
-        blob = {"active_round": int(self.active_round),
-                "best_miou": float(self.best_miou)}
-        blob.update(extra or {})
-        save_checkpoint(self.model, os.path.join(self.cfg.SAVE_DIR, filename),
-                        optimizer=self.optimizer, step=self.step, extra=blob)
+        (``active_round``, ``best_miou``) in ``SAVE_DIR/filename``, written
+        by rank 0 alone (every rank holds the same values), then a
+        barrier, so no rank reads the file before it is whole."""
+        if multihost.is_coordinator():
+            blob = {"active_round": int(self.active_round),
+                    "best_miou": float(self.best_miou)}
+            blob.update(extra or {})
+            save_checkpoint(self.model,
+                            os.path.join(self.cfg.SAVE_DIR, filename),
+                            optimizer=self.optimizer, step=self.step,
+                            extra=blob)
+        multihost.sync_hosts(f"ckpt:{filename}")
 
     def resume_full(self, path: str) -> int:
         """Restore the whole trainer from a checkpoint of this learner:
@@ -184,8 +234,10 @@ class Learner:
 
         On SIGTERM or SIGINT the step under way finishes, ``preempt.ckpt``
         is written before the next one and the loop ends (``last.ckpt``
-        as ever); ``resume_full(preempt.ckpt)`` continues the run. The
-        handlers in place before are restored on the way out."""
+        as ever); ``resume_full(preempt.ckpt)`` continues the run. In a
+        process group the flag is agreed across the ranks (a signal may
+        reach one) every ``_PREEMPT_POLL_STEPS`` steps, so all stop at one
+        step. The handlers in place before are restored on the way out."""
         preempted = []
 
         def on_signal(signum, _frame):
@@ -231,7 +283,10 @@ class Learner:
 
         pending = None
         for step in range(self.step, steps):
-            if preempted:
+            # every rank reaches the agreement on the same steps
+            poll = (self.num_devices == 1
+                    or step % _PREEMPT_POLL_STEPS == 0)
+            if poll and multihost.any_host_flag(bool(preempted)):
                 self._save_checkpoint("preempt.ckpt")
                 print(f"preempted at step {step}; state saved", flush=True)
                 break
@@ -276,10 +331,11 @@ class Learner:
 
     def validate(self, loader=None, max_batches: Optional[int] = None
                  ) -> float:
-        """Flip-TTA mIoU (in %) over the validation set, in eval mode;
-        appends mIoU, mAcc and aAcc to ``metrics.jsonl``."""
-        sums = self._eval_sums(loader or build_test_loader(self.cfg),
-                               max_batches)
+        """Flip-TTA mIoU (in %) over the validation set, in eval mode (each
+        rank a slice of every global batch, the histograms summed over the
+        ranks, so every rank returns the same mIoU); appends mIoU, mAcc
+        and aAcc to ``metrics.jsonl``."""
+        sums = self._eval_sums(loader or self._test_loader(), max_batches)
         if sums[0] is None:
             return 0.0
         miou, macc, aacc, _, _ = miou_from_histograms(
@@ -290,9 +346,15 @@ class Learner:
         self._append_jsonl({"mIoU": miou, "mAcc": macc, "aAcc": aacc})
         return miou
 
+    def _test_loader(self):
+        """The eval loader of ``DATASETS.TEST``: this rank's slice of every
+        global batch in a group."""
+        return build_test_loader(self.cfg, shard=multihost.loader_shard())
+
     def _eval_sums(self, loader, max_batches: Optional[int] = None):
         """The (inter, union, target) sums of the flip-TTA eval step over
-        ``loader``'s first ``max_batches`` batches, in eval mode."""
+        ``loader``'s first ``max_batches`` batches, in eval mode; summed
+        over the ranks of a group."""
         sums = (None, None, None)
         self.model.eval()
         try:
@@ -303,26 +365,38 @@ class Learner:
                     *self._eval_batch(batch), flip=True))
         finally:
             self.model.train()
+        # the ranks' padded slices give every rank the same batch count
+        if self.group is not None and sums[0] is not None:
+            stacked = torch.stack(sums)
+            dist.all_reduce(stacked, group=self.group)
+            sums = tuple(stacked.unbind())
         return sums
 
-    def _calibrate(self, model, loader):
+    def _calib_batches(self) -> int:
+        return max(1, int(self.cfg.TPU.QUANT_CALIB_BATCHES))
+
+    def _calibrate(self, model, loader, count: int):
         """Calibrate the int8 ``model`` (every ``amax`` from 0) on the
-        first ``TPU.QUANT_CALIB_BATCHES`` image batches of ``loader``,
-        through the eval forward."""
+        first ``count`` image batches of ``loader``, through the eval
+        forward; in a group, every ``amax`` is the MAX over the ranks."""
         forward = make_forward(model)
-        batches = itertools.islice(
-            iter(loader), max(1, int(self.cfg.TPU.QUANT_CALIB_BATCHES)))
+        batches = itertools.islice(iter(loader), count)
         quant_ops.calibrate(
             model, (torch.as_tensor(np.asarray(b["img"]), device=self.device)
                     for b in batches),
-            forward=lambda x: forward(x, size=None))
+            forward=lambda x: forward(x, size=None), group=self.group)
         quant_ops.assert_calibrated(model)
 
     def _eval_batch(self, batch):
-        """A loader batch's image and label on the device."""
+        """A loader batch's image and label on the device; the label of a
+        padded position of a global batch is all ignored."""
         img = torch.as_tensor(batch["img"]).to(self.device)
         label = torch.as_tensor(np.asarray(batch["label"])).to(
             self.device).long()
+        pad = batch.get("is_pad")
+        if pad is not None and any(pad):
+            label[torch.as_tensor(pad, device=self.device)] = int(
+                self.cfg.INPUT.IGNORE_LABEL)
         return img, label
 
 
@@ -330,10 +404,11 @@ class _ActiveMixin:
     """Acquisition rounds at ``ACTIVE.SELECT_ITER``."""
 
     def _init_active(self):
-        self.active_loader = build_active_loader(self.cfg)
+        self.active_loader = build_active_loader(
+            self.cfg, shard=multihost.loader_shard())
         self.quant_twin = None  # the int8 sweep's model (TPU.QUANT_SWEEP)
         print(">>>>>>>>>>>>>>>> Init Mask >>>>>>>>>>>>>>>>", flush=True)
-        DatasetCatalog.init_mask(self.cfg)
+        _init_mask(self.cfg)
         self.active_iters = [int(x / self.num_devices)
                              for x in self.cfg.ACTIVE.SELECT_ITER]
         print(f"\nActive learning at iters: {self.active_iters}\n",
@@ -344,8 +419,8 @@ class _ActiveMixin:
         with ``TPU.QUANT_SWEEP`` its int8 twin (``quant_twin``, built
         once), given the training model's current weights and recalibrated
         (every ``amax`` from 0) on the round's first
-        ``TPU.QUANT_CALIB_BATCHES`` sweep batches, since the frozen int8
-        weights are those of the last calibration."""
+        ``TPU.QUANT_CALIB_BATCHES`` global sweep batches, since the frozen
+        int8 weights are those of the last calibration."""
         if not bool(self.cfg.TPU.QUANT_SWEEP):
             return self.model
         if self.quant_twin is None:
@@ -354,7 +429,11 @@ class _ActiveMixin:
                 generator=torch.Generator().manual_seed(self.seed))
         twin = self.quant_twin
         twin.load_state_dict(self.model.state_dict())
-        self._calibrate(twin, self.active_loader)
+        # this rank's slices of the first global batches: it skips a
+        # slice that is all padding (SizeGroupedBatches)
+        numbers = self.active_loader.batch_sampler.numbers
+        self._calibrate(twin, self.active_loader, sum(
+            n < self._calib_batches() for n in numbers))
         return twin
 
     def on_batch_start(self, step: int) -> bool:
@@ -419,11 +498,30 @@ class FullySupervisedLearner(SourceTargetLearner):
 
     def __init__(self, cfg, device=None):
         Learner.__init__(self, cfg, device=device)
-        DatasetCatalog.init_mask(cfg)
+        _init_mask(cfg)
         self.active_iters = []
 
     def on_batch_start(self, step: int) -> bool:
         return False
+
+
+def _offset_dropout_draws(device, rank: int):
+    """Reseed the default generator of ``device`` (where dropout draws)
+    with its initial seed + ``rank``, so each rank draws its own masks;
+    rank 0 keeps the stream one process draws."""
+    if device.type == "cuda":
+        with torch.cuda.device(device):
+            torch.cuda.manual_seed(torch.cuda.initial_seed() + rank)
+    else:
+        torch.manual_seed(torch.initial_seed() + rank)
+
+
+def _init_mask(cfg):
+    """The initial masks, written by rank 0 alone, then a barrier before
+    any rank's loaders read them."""
+    if multihost.is_coordinator():
+        DatasetCatalog.init_mask(cfg)
+    multihost.sync_hosts("init_mask")
 
 
 class CalibImages(Dataset):
@@ -484,7 +582,8 @@ class TestLearner(Learner):
 
     def _calib_loader(self):
         """``TEST.BATCH_SIZE`` images a batch of the target train split,
-        in file order, under the test transform."""
+        in file order, under the test transform (this rank's slice of
+        every global batch in a group)."""
         cfg = self.cfg
         name = calibration_split(cfg)
         try:
@@ -497,13 +596,14 @@ class TestLearner(Learner):
                 f"TPU.QUANT_EVAL calibrates on the target train split "
                 f"{name!r}, which cannot be read ({e}); set "
                 "DATASETS.TARGET_TRAIN to a readable train split") from e
-        return DataLoader(CalibImages(dataset, build_transform(cfg, "test")),
-                          batch_size=int(cfg.TEST.BATCH_SIZE), shuffle=False,
-                          num_workers=int(cfg.TPU.LOADER_WORKERS),
-                          collate_fn=numpy_collate)
+        return build_eval_loader(
+            CalibImages(dataset, build_transform(cfg, "test")),
+            int(cfg.TEST.BATCH_SIZE) * self.num_devices,
+            int(cfg.TPU.LOADER_WORKERS), multihost.loader_shard())
 
     def _calibrate_quant(self):
-        self._calibrate(self.model, self._calib_loader())
+        self._calibrate(self.model, self._calib_loader(),
+                        self._calib_batches())
 
     def train_loaders(self):
         raise RuntimeError("TestLearner does not train")
@@ -511,12 +611,13 @@ class TestLearner(Learner):
     def test(self, max_batches: Optional[int] = None) -> Dict:
         """{'mIoU', 'mAcc', 'aAcc', 'iou_class'} in %, plus 'mIoU*' (13
         classes) at 16 classes; prints the per-class table and the LaTeX
-        row."""
+        row. In a group the plain eval splits every global batch over the
+        ranks; the rich eval runs whole on every rank."""
         cfg = self.cfg
         if cfg.TEST.SAVE_EMBED or cfg.TEST.VIZ_WRONG:
             inter, union, target = self._test_rich(max_batches)
         else:
-            inter, union, target = self._eval_sums(build_test_loader(cfg),
+            inter, union, target = self._eval_sums(self._test_loader(),
                                                    max_batches)
         if inter is None:
             raise RuntimeError(
@@ -541,7 +642,8 @@ class TestLearner(Learner):
     def _test_rich(self, max_batches: Optional[int] = None):
         """The rich eval over the test set, ``TEST.BATCH_SIZE`` images a
         batch: saves each batch's artifacts (named after its first image)
-        and plots 20 fixed pseudo-random batch indices' first image."""
+        and plots 20 fixed pseudo-random batch indices' first image. In a
+        group every rank runs it whole and rank 0 alone writes."""
         cfg = self.cfg
         rich_step = make_rich_eval_step(cfg, self.model)
         viz_list = set(np.random.RandomState(
@@ -556,9 +658,10 @@ class TestLearner(Learner):
                 r = rich_step(img, label, flip=True)
                 name = (batch["name"][0].rsplit("/", 1)[-1]
                         .rsplit("_", 1)[0] if batch.get("name") else str(i))
-                if cfg.TEST.SAVE_EMBED:
+                if cfg.TEST.SAVE_EMBED and multihost.is_coordinator():
                     self._save_artifacts(r, label, name)
-                if cfg.TEST.VIZ_WRONG and i in viz_list:
+                if (cfg.TEST.VIZ_WRONG and i in viz_list
+                        and multihost.is_coordinator()):
                     self._viz_wrong(r, batch["img"], label, name)
                 sums = _accumulate(sums, (r["inter"], r["union"],
                                           r["target"]))

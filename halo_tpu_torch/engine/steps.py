@@ -14,6 +14,13 @@ updates its running statistics twice a step, in order, as the reference
 does (the JAX package merges two updates to the same effect,
 ``_merge_stats``). The trunk and decoder run under autocast; the losses are
 computed in float32.
+
+Data parallel (``group``): each rank runs the step on its slice of the
+global batch; the losses divide by the global denominators, the
+gradients are averaged over the ranks after ``backward`` (explicitly, in
+buckets: two forwards before one backward, and ``TPU.REMAT``'s
+recomputation, sit badly with DDP's reducer hooks), and the metrics are
+the global losses.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from ..active.scoring import _radius_map, pixel_entropy
 from ..losses import (cross_entropy_loss, local_consistent_loss,
                       negative_learning_loss)
 from ..ops.resize import resize_bilinear
+from ..parallel.collectives import all_reduce_gradients, all_reduce_mean
 from ..utils.metrics import intersection_and_union
 
 
@@ -51,12 +59,13 @@ def make_forward(model):
     return forward
 
 
-def make_train_step(cfg, model, optimizer, protocol: str):
+def make_train_step(cfg, model, optimizer, protocol: str, group=None):
     """``train_step(batches) -> metrics``: both forwards, the protocol's
     loss stack, backward and one optimizer step (the caller steps the LR
-    scheduler). ``batches`` maps 'source'/'target' to dicts of device
-    tensors ('img' (B, H, W, 3) float32, 'label' and 'mask' (B, H, W)
-    integers). The metrics are detached float32 scalars named as in the
+    scheduler); over ``group`` (a process group, None in one process) the
+    gradients are averaged over the ranks before the step. ``batches``
+    maps 'source'/'target' to dicts of device tensors ('img' (B, H, W, 3)
+    float32, 'label' and 'mask' (B, H, W) integers). The metrics are detached float32 scalars named as in the
     JAX package: 'loss_sup', 'loss_sup_tgt', 'consistency_loss',
     'negative_loss', 'loss'."""
     forward = make_forward(model)
@@ -65,6 +74,7 @@ def make_train_step(cfg, model, optimizer, protocol: str):
     neg_w = float(cfg.SOLVER.NEGATIVE_LOSS)
     neg_tau = float(cfg.SOLVER.NEGATIVE_THRESHOLD)
     lcr_type = cfg.SOLVER.LCR_TYPE
+    params = [p for p in model.parameters() if p.requires_grad]
 
     def train_step(batches):
         optimizer.zero_grad(set_to_none=True)
@@ -80,23 +90,29 @@ def make_train_step(cfg, model, optimizer, protocol: str):
             src = batches["source"]
             src_out, _ = forward(src["img"])
             add("loss_sup", cross_entropy_loss(src_out, src["label"],
-                                               ignore))
+                                               ignore, group=group))
             if lcr_w > 0 and protocol in ("source_target", "fully_sup"):
                 add("consistency_loss", local_consistent_loss(
                     src_out, src["label"], l_type=lcr_type,
-                    ignore_index=ignore) * lcr_w)
+                    ignore_index=ignore, group=group) * lcr_w)
         if protocol in ("source_free", "source_target", "fully_sup"):
             tgt = batches["target"]
             tgt_out, _ = forward(tgt["img"])
             labels = tgt["label"] if protocol == "fully_sup" else tgt["mask"]
-            add("loss_sup_tgt", cross_entropy_loss(tgt_out, labels, ignore))
+            add("loss_sup_tgt", cross_entropy_loss(tgt_out, labels, ignore,
+                                                   group=group))
             if neg_w > 0:
                 p = F.softmax(tgt_out.float(), dim=-1)
                 add("negative_loss",
-                    negative_learning_loss(p, neg_tau) * neg_w)
+                    negative_learning_loss(p, neg_tau, group=group) * neg_w)
         loss.backward()
+        if group is not None:
+            all_reduce_gradients(params, group)
         optimizer.step()
         metrics["loss"] = loss
+        if group is not None:
+            return dict(zip(metrics, all_reduce_mean(list(metrics.values()),
+                                                     group)))
         return {k: v.detach() for k, v in metrics.items()}
 
     return train_step

@@ -4,16 +4,34 @@ consistency (port of ``halo_tpu/losses/losses.py``).
 Logits are channel-last ``(N, H, W, C)``, labels ``(N, H, W)`` integers;
 every loss is computed in float32 whatever the logits' dtype, as the JAX
 package casts.
+
+``group``: over a process group (data parallelism) each rank holds a
+slice of the global batch, and the JAX package's loss is the mean over
+the global batch. The denominator (a count of pixels, or a weight sum) is
+then all-reduced first, without gradient, and each rank returns its
+``local sum / global denominator`` times the group's size: the mean of
+the ranks' values, and of their gradients, is the global mean's.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 
+def _mean(total, denom, group=None):
+    """total / max(denom, 1); over ``group``, with the denominator summed
+    over the ranks and the result scaled by the group's size."""
+    if group is None:
+        return total / torch.clamp(denom, min=1.0)
+    denom = denom.detach().float().clone()
+    dist.all_reduce(denom, group=group)
+    return total / torch.clamp(denom, min=1.0) * dist.get_world_size(group)
+
+
 def cross_entropy_loss(logits, labels, ignore_index: int = 255,
-                       weight=None):
+                       weight=None, group=None):
     """Mean CE over the pixels whose label is not ``ignore_index``:
     total / max(count, 1), so an all-ignored mask gives exactly 0 (where
     ``F.cross_entropy(reduction="mean")`` gives NaN). ``weight`` is an
@@ -31,16 +49,16 @@ def cross_entropy_loss(logits, labels, ignore_index: int = 255,
     else:
         denom = valid.sum().float()
     total = torch.where(valid, nll, torch.zeros_like(nll)).sum()
-    return total / torch.clamp(denom, min=1.0)
+    return _mean(total, denom, group)
 
 
-def negative_learning_loss(probs, threshold: float = 0.05):
+def negative_learning_loss(probs, threshold: float = 0.05, group=None):
     """-mean over {p < threshold} of log(1 - p + 1e-6), the mask taken
     without gradient."""
     p = probs.float()
     mask = (p < threshold).float().detach()
     item = -mask * torch.log(1.0 - p + 1e-6)
-    return item.sum() / torch.clamp(mask.sum(), min=1.0)
+    return _mean(item.sum(), mask.sum(), group)
 
 
 def _box_mean_3x3(p, neighbor: int = 8):
@@ -89,9 +107,9 @@ def semantic_boundary(labels, neighbor: int = 8):
 
 
 def local_consistent_loss(logits, labels, l_type: str = "l1",
-                          ignore_index: int = 255):
+                          ignore_index: int = 255, group=None):
     """Mean local discrepancy over the semantic-boundary pixels that are
     not ignored (0 when there are none)."""
     disc = local_discrepancy(logits, l_type=l_type)
     m = (semantic_boundary(labels) & (labels != ignore_index)).float()
-    return (disc * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return _mean((disc * m).sum(), m.sum(), group)

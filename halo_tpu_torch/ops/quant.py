@@ -43,6 +43,7 @@ import warnings
 from typing import Dict, Iterable, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from .. import kernels
@@ -379,14 +380,18 @@ def quant_layers(model):
             if isinstance(mod, QuantLayer)]
 
 
-def calibrate(model, batches: Iterable, reset: bool = True, forward=None):
+def calibrate(model, batches: Iterable, reset: bool = True, forward=None,
+              group=None):
     """Calibration pass: run ``forward`` (default ``model``) over
     ``batches`` in eval mode without gradients, every quantised layer in
     calibration mode (float forward; ``amax`` = running max|x|; weights
     snapshot), then restore the model's training flag. By default
     (``reset``) every ``amax`` restarts from 0, so a recalibration
     replaces the scales rather than only ever widening them. Re-run after
-    any weight load."""
+    any weight load. ``group``: each rank calibrates on its slices of the
+    global batches (none, when each of its slices was all padding), and
+    every ``amax`` is then the MAX over the ranks (one all-reduce), the
+    absmax of the global batches."""
     layers = [m for _, m in quant_layers(model)]
     if not layers:
         raise ValueError("the model has no quantized layers: build it with "
@@ -394,7 +399,7 @@ def calibrate(model, batches: Iterable, reset: bool = True, forward=None):
                          "calibrating")
     batches = iter(batches)
     first = next(batches, None)
-    if first is None:
+    if first is None and group is None:
         raise ValueError("calibrate() needs at least one batch")
     forward = forward or model
     if reset:
@@ -406,13 +411,22 @@ def calibrate(model, batches: Iterable, reset: bool = True, forward=None):
         mod.calibrating = True
     try:
         with torch.no_grad():
-            forward(first)
+            if first is not None:
+                forward(first)
             for x in batches:
                 forward(x)
     finally:
         for mod in layers:
             mod.calibrating = False
         model.train(was_training)
+    if group is not None:
+        amax = torch.stack([mod.amax for mod in layers])
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+        with torch.no_grad():
+            for mod, value in zip(layers, amax.unbind()):
+                mod.amax.copy_(value)
+                # a rank that ran no forward has not snapshot the weights
+                mod._snapshot(*quantize_weight(mod.weight))
 
 
 def assert_calibrated(model):

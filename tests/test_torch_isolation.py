@@ -49,6 +49,11 @@ SLICE_MODULES = {"halo_tpu_torch.test", "halo_tpu_torch.train",
                  "halo_tpu_torch.data.datasets",
                  "halo_tpu_torch.data.catalog",
                  "halo_tpu_torch.utils.visualize",
+                 "halo_tpu_torch.utils.profiling",
+                 "halo_tpu_torch.parallel.mesh",
+                 "halo_tpu_torch.parallel.multihost",
+                 "halo_tpu_torch.parallel.collectives",
+                 "halo_tpu_torch.parallel.launch",
                  "halo_tpu_torch.active.region_selection"}
 
 
