@@ -18,15 +18,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
              one map, the batch (us a pick) and the plain version.
   4. conv    kernel C (the dilated 3x3 conv) against its plain version,
              forward, dx and dk through autograd, at the train step's
-             shapes (B = 2, 90x160: 256 ch d=2, 512 ch d=2, 512 ch d=4,
-             bf16; 256 ch d=2 float32), after one small forward and one
+             shapes (B = 2, the source's 90x160: 256 ch d=2, 512 ch d=2,
+             512 ch d=4, bf16, 256 ch d=2 float32; the target's 80x160:
+             256 ch d=2, 512 ch d=4, bf16), after one small forward and one
              small dk launch synchronised at once: bf16 within one bf16
              step beyond 1e-5 of max|out| (dk: of wgrad_taps on float32
              operands; two dk calls bit-identical), f32 within 1e-5 of
              max|out|; times kernel (fwd, dx and, in bf16, the weight-
              gradient kernel), plain version, F.conv2d (cuDNN), its dgrad
              and wgrad, and wgrad_taps (the plain dk, the f32 path's dk),
-             with the bound of each.
+             with the bound of each; for the bf16 dk also its share of the
+             bound, the profiler's time of each of its kernels, and its
+             plan (ops/dilated_conv.wgrad_plan) with the L2 bytes it
+             reckons.
   5. slice   the acquisition round of configs/gtav/source_target.yaml
              (DeepLab-v3+ R101, hyperbolic head with HFR, 640x1280 input,
              entropy x radius, 1% a round) from a seeded random init over a
@@ -195,6 +199,7 @@ import argparse
 import contextlib
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -249,7 +254,8 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
 
 def kernel_ms(torch, fn, names, iters: int = 10) -> dict:
     """Device ms a call of each kernel whose name holds one of ``names``,
-    from torch.profiler over ``iters`` calls of fn (kernel time alone)."""
+    from torch.profiler over ``iters`` calls of fn (kernel time alone),
+    keyed by the kernel's own name (the identifier that holds the match)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -260,9 +266,11 @@ def kernel_ms(torch, fn, names, iters: int = 10) -> dict:
     out = {}
     for e in prof.key_averages():
         for name in names:
-            if name in e.key:
-                out[name] = out.get(name, 0.0) + \
+            hit = re.search(r"\w*" + name + r"\w*", e.key)
+            if hit:
+                out[hit.group()] = out.get(hit.group(), 0.0) + \
                     e.self_device_time_total / 1e3 / iters
+                break
     return out
 
 
@@ -470,14 +478,29 @@ def check_conv(torch, dc, x, wt, g, d, label) -> dict:
     return errs
 
 
+def dk_plan_line(torch, dc, b, c, h, w, d) -> str:
+    """The weight-gradient kernel's split of a call on this card and the
+    L2 bytes it reckons: operands into shared memory, float32 partials out
+    and back."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = dc.wgrad_plan(b, h, w, c, c, d, sms)
+    return (f"plan P = {plan.period}, G = {plan.grid} blocks of {sms} SMs, "
+            f"{plan.tiles} tiles x {plan.steps} pixel steps; L2 operand "
+            f"bytes {plan.operand_bytes() / 1e6:.1f} MB, partials "
+            f"{plan.partial_bytes() / 1e6:.1f} MB")
+
+
 def phase_conv(torch, gen, report):
-    """Kernel C at the main path's shapes (B = 2, 90x160) against its plain
-    version, forward, dx and dk; times kernel, plain version and cuDNN."""
+    """Kernel C at the main path's shapes (B = 2: 90x160 the source's,
+    80x160 the target's) against its plain version, forward, dx and dk;
+    times kernel, plain version and cuDNN."""
     import torch.nn.functional as F
     from halo_tpu_torch.ops import dilated_conv as dc
 
-    cases = [(256, 2, torch.bfloat16), (512, 2, torch.bfloat16),
-             (512, 4, torch.bfloat16), (256, 2, torch.float32)]
+    # (channels, d, dtype, H): R101 layer3 (256) and layer4 (512)
+    cases = [(256, 2, torch.bfloat16, 90), (512, 2, torch.bfloat16, 90),
+             (512, 4, torch.bfloat16, 90), (256, 2, torch.bfloat16, 80),
+             (512, 4, torch.bfloat16, 80), (256, 2, torch.float32, 90)]
     # One launch of each kernel, synchronised at once: a kernel that hangs
     # or faults shows here, not in a later phase.
     x = torch.randn((1, 64, 8, 40), generator=gen, device=DEVICE)
@@ -491,16 +514,17 @@ def phase_conv(torch, gen, report):
     print("conv: first bf16 forward and dk launches ran", flush=True)
     worst, worst_dk = 0.0, 0.0
     rows = {}
-    for c, d, dtype in cases:
-        label = f"{c}ch d={d} {str(dtype).split('.')[-1]}"
+    for c, d, dtype, h in cases:
+        w = 160
+        label = f"{c}ch d={d} {h}x{w} {str(dtype).split('.')[-1]}"
         bf16 = dtype == torch.bfloat16
-        x = torch.randn((2, c, 90, 160), generator=gen, device=DEVICE)
+        x = torch.randn((2, c, h, w), generator=gen, device=DEVICE)
         x = x.to(dtype).contiguous(memory_format=torch.channels_last)
         # channels_last, as the port's models hold their weights on CUDA
         wt = (torch.randn((c, c, 3, 3), generator=gen, device=DEVICE)
               / math.sqrt(9 * c)).to(dtype).contiguous(
                   memory_format=torch.channels_last)
-        g = torch.randn((2, c, 90, 160), generator=gen, device=DEVICE)
+        g = torch.randn((2, c, h, w), generator=gen, device=DEVICE)
         g = g.to(dtype).contiguous(memory_format=torch.channels_last)
         errs = check_conv(torch, dc, x, wt, g, d, label)
         worst = max(worst, errs["fwd"], errs["dx"])
@@ -532,26 +556,29 @@ def phase_conv(torch, gen, report):
                 if bf16 else taps
             lib_dk = cuda_ms(
                 torch, lambda i: conv_backward([False, True, False]), 20)
-        if bf16:
-            split = kernel_ms(torch, lambda: dc._wgrad(xh, gh, d),
-                              ("wgrad_bf16_kernel", "wgrad_reduce_kernel"))
-            print(f"conv {label} dk kernels (profiler, ms a call): "
-                  + json.dumps({k: round(v, 4) for k, v in split.items()}),
-                  flush=True)
-        flops = 2 * 2 * 90 * 160 * 9 * c * c
-        nbytes = (2 * 2 * 90 * 160 * c + 9 * c * c) * x.element_size()
+        flops = 2 * 2 * h * w * 9 * c * c
+        nbytes = (2 * 2 * h * w * c + 9 * c * c) * x.element_size()
         rate = BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S
         b_ms, b_by = bound_ms(nbytes, flops, rate)
         # dk reads x and the cotangent once and writes the 9 taps
-        dk_ms, dk_by = bound_ms((2 * 2 * 2 * 90 * 160 * c + 9 * c * c)
+        dk_ms, dk_by = bound_ms((2 * 2 * 2 * h * w * c + 9 * c * c)
                                 * x.element_size(), flops, rate)
-        dk_what = ("dk kernel (split-K TMA + wgmma, then the ordered "
-                   f"reduction) {dk:.4f} ms ({flops / dk / 1e9:.1f} "
+        if bf16:
+            split = kernel_ms(torch, lambda: dc._wgrad(xh, gh, d),
+                              ("wgrad",))
+            print(f"conv {label} dk: kernel {dk:.4f} ms, cuDNN wgrad "
+                  f"{lib_dk:.4f} ms, bound {dk_ms:.4f} ms ({dk_by}), "
+                  f"{dk_ms / dk:.1%} of the bound; kernels (profiler, ms a "
+                  "call) " + json.dumps({k: round(v, 4)
+                                         for k, v in split.items()})
+                  + "; " + dk_plan_line(torch, dc, 2, c, h, w, d), flush=True)
+        dk_what = ("dk kernel (split-K TMA + wgmma, one launch) "
+                   f"{dk:.4f} ms ({flops / dk / 1e9:.1f} "
                    f"TFLOP/s), wgrad_taps (pad, 9 slab copies, 9 torch.mm) "
                    f"{taps:.4f} ms" if bf16 else
                    f"dk (wgrad_taps: pad, 9 slab copies, 9 torch.mm) "
                    f"{dk:.4f} ms")
-        print(f"conv {label} (2, {c}, 90, 160): kernel fwd {ms:.4f} ms, dx "
+        print(f"conv {label} (2, {c}, {h}, {w}): kernel fwd {ms:.4f} ms, dx "
               f"{ms_dx:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s fwd), plain "
               f"{plain:.4f} ms, F.conv2d (cuDNN, channels_last) {lib:.4f} "
               f"ms, cuDNN dgrad (convolution_backward) {lib_dx:.4f} ms, bound "
@@ -561,14 +588,14 @@ def phase_conv(torch, gen, report):
               f"({dk_by}, {dk_ms / dk:.0%} of it)", flush=True)
         rows[label] = (ms, plain, b_ms, b_by, lib, dk, taps, dk_ms, dk_by,
                        lib_dk)
-    ms, plain, b_ms, b_by, lib = rows["256ch d=2 bfloat16"][:5]
+    ms, plain, b_ms, b_by, lib = rows["256ch d=2 90x160 bfloat16"][:5]
     report["dilated_conv3x3"] = {
         "name": "dilated_conv3x3", "route": "cuda",
         "source": "halo_tpu_torch/csrc/dilated_conv.cu",
         "replaces": "halo_tpu/ops/pallas_conv.py:150",
         "launches": 0, "max_abs_err": worst, "ms": ms, "plain_ms": plain,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
-    dk, taps, dk_ms, dk_by, lib_dk = rows["256ch d=2 bfloat16"][5:]
+    dk, taps, dk_ms, dk_by, lib_dk = rows["256ch d=2 90x160 bfloat16"][5:]
     report["dilated_conv3x3_wgrad"] = {
         "name": "dilated_conv3x3_wgrad", "route": "cuda",
         "source": "halo_tpu_torch/csrc/dilated_conv_wgrad.cu",
@@ -814,8 +841,7 @@ CONV_RANGES = (
     ("repack", ("repack", "repack_kmajor", "repack_flipped")),
     ("layout", ("_nhwc",)))
 # Kernel C's own kernels, by the name the profiler gives them.
-CONV_KERNELS = ("conv_bf16_kernel", "conv_f32_kernel", "wgrad_bf16_kernel",
-                "wgrad_reduce_kernel")
+CONV_KERNELS = ("conv_bf16_kernel", "conv_f32_kernel", "wgrad_bf16_kernel")
 
 
 @contextlib.contextmanager

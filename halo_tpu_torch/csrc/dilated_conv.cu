@@ -149,8 +149,8 @@ __device__ __forceinline__ void consume_item(const Item& tl, int steps,
         wgmma_m64n256k16<0, 0>(acc, da + 2 * kk, db + 2 * kk,
                          (step > 0 || kk > 0) ? 1 : 0);
       else
-        wgmma_m64n128k16(acc, da + 2 * kk, db + 2 * kk,
-                         (step > 0 || kk > 0) ? 1 : 0);
+        wgmma_m64n128k16<0, 0>(acc, da + 2 * kk, db + 2 * kk,
+                               (step > 0 || kk > 0) ? 1 : 0);
     }
     wgmma_commit();
     wgmma_wait<1>();  // the previous step's products have read their stage

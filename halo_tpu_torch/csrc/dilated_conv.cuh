@@ -186,7 +186,9 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA), "n"(kTransB));
 }
 
-// d (+)= A (64 x 16, K-major smem) * B (128 x 16, K-major smem)^T.
+// d (+)= A (64 x 16) * B (16 x 128), bf16 in smem, float32 in registers;
+// kTransA / kTransB as for wgmma_m64n256k16.
+template <int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
                                                  uint64_t db, int accumulate) {
   asm volatile(
@@ -199,7 +201,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
       "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
       "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
       "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
+      "%64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -214,7 +216,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA), "n"(kTransB));
 }
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,

@@ -40,9 +40,9 @@ _SIGNATURES = {
     "halo_greedy_picks": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "halo_dilated_conv3x3_bf16": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "halo_dilated_conv3x3_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "halo_dilated_conv3x3_wgrad_bf16": (_P, _P, _P, _P, _LL, _I, _I, _I, _I,
-                                        _I, _I, _P),
-    "halo_dilated_conv3x3_wgrad_workspace": (_I, _I, _I, _I, _I, _I),
+    "halo_dilated_conv3x3_wgrad_bf16": (_P, _P, _P, _P, _LL, _P, _LL) +
+                                       (_I,) * 8 + (_P,),
+    "halo_dilated_conv3x3_wgrad_workspace": (_I,) * 8,
     "halo_int8_conv": (_P, _P, _P, _P, _P, _I) + (_I,) * 16 + (_F, _F, _P),
     "halo_int8_quantize": (_P, _I, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL,
                            _LL, _I, _F, _F, _P),

@@ -18,9 +18,22 @@ weight's dtype, is ``csrc/dilated_conv_wgrad.cu`` for a CUDA bf16 tensor
 and ``wgrad_taps`` (``torch.mm``, its plain version) otherwise: in float32
 on the card it already beats cuDNN's wgrad. The cotangent's channels-last
 view is made once for both.
+
+The bf16 dk is bound on the card by its pixel step: what an SM takes in
+from L2, its tensor cores and the step's handshake cost about the same.
+The kernel makes a tile of the three taps of a kernel row, which share one
+box of x, so a step brings 26 KB (not 48) for its 3.15 MFLOP, and runs no
+division a step; the split of its long K over the SMs is ``wgrad_plan``'s,
+made here where it is tested: each tile's pixel steps dealt into P
+residues, the (tile, residue) units cut into one contiguous range a block,
+at most one block an SM. The blocks that share a tile sum their partials
+in block order inside the same launch, so two calls give the same bits.
 """
 
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -184,32 +197,178 @@ def _launch(xh, w9, co: int, d: int):
     return y.permute(0, 3, 1, 2)
 
 
-_WORKSPACE_BYTES = {}  # (B, H, W, C, Co, d, device) -> the entry's count
+# The weight-gradient kernel's tile (the three taps of a row, 64 input x
+# 128 output channels each) and pixel step (64 pixels), as
+# csrc/dilated_conv_wgrad.cu has them; a step's bytes of g (two boxes of 64
+# channels) and a float32 partial tile.
+_DK_TILE = (64, 128)
+_DK_STEP_PIXELS = 64
+_DK_G_BYTES = 2 * 64 * _DK_STEP_PIXELS * 2
+_DK_PARTIAL_BYTES = 3 * _DK_TILE[0] * _DK_TILE[1] * 4
+# The plan's search: at most this many residues a tile, and what a shared
+# tile's partial (its store, the wait and its share of the sum) costs a
+# block, in pixel steps.
+_DK_MAX_PERIOD = 32
+_DK_SHARED_COST = 8
 
 
-def _wgrad(xh, gh, d: int):
+def wgrad_step(d: int) -> tuple:
+    """(rows, columns, x bytes) of the kernel's pixel step at dilation d:
+    one x box for a row's three taps, hs = 8 / gcd(d, 8) rows by 64 / hs
+    columns and 2d more columns, while lcm(d, 8) <= 64; else three boxes of
+    2 x 32 pixels."""
+    if d * 8 // math.gcd(d, 8) <= 64:
+        hs = 8 // math.gcd(d, 8)
+        return hs, _DK_STEP_PIXELS // hs, 128 * (_DK_STEP_PIXELS + 2 * d * hs)
+    return 2, _DK_STEP_PIXELS // 2, 3 * 64 * _DK_STEP_PIXELS * 2
+
+
+class WgradPlan(NamedTuple):
+    """How the weight-gradient kernel splits one call: each of the
+    ``tiles`` tiles' ``steps`` pixel steps are dealt into ``period``
+    residues (kt mod period); the tiles * period (tile, residue) units, in
+    that order, are cut into ``grid`` contiguous ranges of equal size, one
+    a block. The kernel (``csrc/dilated_conv_wgrad.cu``) derives the same
+    split from (period, grid); a step brings ``step_bytes`` from L2."""
+    steps: int
+    tiles: int
+    period: int
+    grid: int
+    step_bytes: int
+
+    @property
+    def units(self) -> int:
+        return self.tiles * self.period
+
+    def block_range(self, b: int) -> tuple:
+        return (b * self.units // self.grid,
+                (b + 1) * self.units // self.grid)
+
+    def block_of(self, u: int) -> int:
+        """The block whose range holds unit u."""
+        return ((u + 1) * self.grid - 1) // self.units
+
+    def segments(self, b: int) -> list:
+        """Block b's (tile, r0, r1) in its order: residues [r0, r1) of a
+        tile each."""
+        u, end = self.block_range(b)
+        out = []
+        while u < end:
+            tile, r0 = divmod(u, self.period)
+            r1 = min(self.period, end - tile * self.period)
+            out.append((tile, r0, r1))
+            u = tile * self.period + r1
+        return out
+
+    def pixel_steps(self, r0: int, r1: int) -> list:
+        """A segment's pixel steps in the order the kernel takes them: each
+        period's residues [r0, r1) in turn."""
+        return [base + r for base in range(0, self.steps, self.period)
+                for r in range(r0, r1) if base + r < self.steps]
+
+    def segment_steps(self, r0: int, r1: int) -> int:
+        q, rem = divmod(self.steps, self.period)
+        return (r1 - r0) * q + max(0, min(r1, rem) - r0)
+
+    def contributors(self, tile: int) -> range:
+        """The blocks that hold a part of the tile, in the order the kernel
+        sums their partials."""
+        return range(self.block_of(tile * self.period),
+                     self.block_of((tile + 1) * self.period - 1) + 1)
+
+    def finishers(self, tile: int) -> range:
+        """The blocks that write the tile's dk: its one block when that
+        holds it whole; else the contributors whose range ends in the tile
+        (all but, maybe, the last), which wait for every partial and share
+        the sum."""
+        blocks = self.contributors(tile)
+        ends = self.block_range(blocks[-1])[1] <= (tile + 1) * self.period
+        return blocks if ends or len(blocks) == 1 else blocks[:-1]
+
+    def block_cost(self, b: int) -> int:
+        """Pixel steps of block b, plus what its shared tiles cost."""
+        return sum(self.segment_steps(r0, r1)
+                   + (0 if r1 - r0 == self.period else _DK_SHARED_COST)
+                   for _, r0, r1 in self.segments(b))
+
+    def operand_bytes(self) -> int:
+        """Bytes the call's pixel steps bring from L2 into shared memory."""
+        return self.tiles * self.steps * self.step_bytes
+
+    def partial_bytes(self) -> int:
+        """Bytes of float32 partials the call stores and reads back."""
+        shared = sum(r1 - r0 < self.period for b in range(self.grid)
+                     for _, r0, r1 in self.segments(b))
+        return 2 * shared * _DK_PARTIAL_BYTES
+
+
+def wgrad_plan(b: int, h: int, w: int, c: int, co: int, d: int,
+               sms: int) -> WgradPlan:
+    """The split of the weight-gradient kernel for x (b, h, w, c) and g
+    (b, h, w, co) at dilation d on a card of ``sms`` SMs: the period (at
+    most the pixel steps, at most ``_DK_MAX_PERIOD``) whose one wave of at
+    most ``sms`` blocks has the least costly block; the smaller period on
+    a tie."""
+    hs, wsz, x_bytes = wgrad_step(d)
+    steps = b * -(-h // hs) * -(-w // wsz)
+    tiles = 3 * -(-c // _DK_TILE[0]) * -(-co // _DK_TILE[1])
+    best, best_cost = None, None
+    for period in range(1, max(1, min(steps, _DK_MAX_PERIOD)) + 1):
+        plan = WgradPlan(steps, tiles, period, min(sms, tiles * period),
+                         _DK_G_BYTES + x_bytes)
+        cost = max(plan.block_cost(i) for i in range(plan.grid))
+        if best is None or cost < best_cost:
+            best, best_cost = plan, cost
+    return best
+
+
+_DK_PLANS = {}  # (B, H, W, C, Co, d, device, plan) -> (plan, workspace bytes)
+_DK_FLAGS = {}  # (device, stream) -> the kernel's uint32 counters
+
+
+def _wgrad_flags(device, stream: int, words: int):
+    """The kernel's counters on one stream (two a tile, two for its grid
+    barrier): zeroed once when made, left with zero counts by every
+    call."""
+    flags = _DK_FLAGS.get((device, stream))
+    if flags is None or flags.numel() < words:
+        flags = torch.zeros(max(words, 1024), dtype=torch.int32,
+                            device=device)
+        _DK_FLAGS[(device, stream)] = flags
+    return flags
+
+
+def _wgrad(xh, gh, d: int, plan: WgradPlan | None = None):
     """dk by the weight-gradient kernel on CUDA bf16 NHWC x and cotangent
-    -> (Co, C, 3, 3) bf16, through a float32 workspace it sizes."""
+    -> (Co, C, 3, 3) bf16, split by ``wgrad_plan`` (or ``plan``)."""
     b, h, w, c = xh.shape
     co = gh.shape[3]
     lib = kernels.load()
     entry = "halo_dilated_conv3x3_wgrad_bf16"
-    key = (b, h, w, c, co, int(d), xh.device)
-    nbytes = _WORKSPACE_BYTES.get(key)
-    if nbytes is None:
-        nbytes = lib.halo_dilated_conv3x3_wgrad_workspace(b, h, w, c, co,
-                                                          int(d))
-        _WORKSPACE_BYTES[key] = nbytes
+    key = (b, h, w, c, co, int(d), xh.device, plan)
+    got = _DK_PLANS.get(key)
+    if got is None:
+        p = plan or wgrad_plan(b, h, w, c, co, int(d),
+                               torch.cuda.get_device_properties(
+                                   xh.device).multi_processor_count)
+        got = (p, lib.halo_dilated_conv3x3_wgrad_workspace(
+            b, h, w, c, co, int(d), p.period, p.grid))
+        _DK_PLANS[key] = got
+    p, nbytes = got
     if nbytes < 0:
         raise ValueError(f"dilated_conv3x3: the weight-gradient kernel "
-                         f"refuses x {tuple(xh.shape)}, g {tuple(gh.shape)}")
+                         f"refuses x {tuple(xh.shape)}, g {tuple(gh.shape)}"
+                         f" with {p}")
     if xh.data_ptr() % 16 or gh.data_ptr() % 16:
         raise ValueError("dilated_conv3x3: operands not 16-byte aligned")
+    stream = kernels.current_stream(xh.device)
+    flags = _wgrad_flags(xh.device, stream, 2 * p.tiles + 2)
     ws = torch.empty(nbytes, dtype=torch.uint8, device=xh.device)
     dk = torch.empty((co, c, 3, 3), dtype=xh.dtype, device=xh.device)
     err = getattr(lib, entry)(
         xh.data_ptr(), gh.data_ptr(), dk.data_ptr(), ws.data_ptr(), nbytes,
-        b, h, w, c, co, int(d), kernels.current_stream(xh.device))
+        flags.data_ptr(), flags.numel(), b, h, w, c, co, int(d), p.period,
+        p.grid, stream)
     kernels.check(err, entry)
     global launches_dk
     launches_dk += 1

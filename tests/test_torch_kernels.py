@@ -271,6 +271,14 @@ def test_dilated_conv_weight_layout_gives_same_bits(gen):
     (2, 256, 256, 90, 160, 2),    # layer3 of the recipe
     (2, 512, 512, 90, 160, 2),    # layer4
     (2, 512, 512, 90, 160, 4),
+    (2, 256, 256, 80, 160, 2),    # layer3, the target's 80x160
+    (2, 512, 512, 80, 160, 4),    # layer4, the target
+    (2, 160, 96, 40, 96, 2),      # C = 160, Co = 96: 18 ragged tiles
+    (1, 32, 64, 4, 40, 1),        # 5 pixel steps a tile: one block each
+    (1, 96, 64, 9, 23, 5),        # d = 5: steps of 8 x 8, an 8 x 18 x box
+    (1, 32, 64, 20, 70, 16),      # d = 16: steps of 1 x 64, a 1 x 96 box
+    (1, 64, 96, 12, 50, 9),       # d = 9: three 2 x 32 x boxes a step
+    (1, 1024, 1024, 8, 64, 1),    # 288 tiles, whole, two or three a block
 ])
 def test_dilated_conv_wgrad_matches_plain(gen, b, c, co, h, w, d):
     """The weight-gradient kernel against wgrad_taps on float32 operands
@@ -288,6 +296,47 @@ def test_dilated_conv_wgrad_matches_plain(gen, b, c, co, h, w, d):
     assert torch.equal(got.view(torch.int16), again.view(torch.int16))
     floor = 1e-5 * float(want.abs().max())
     assert _bf16_steps(got, want, floor) <= 1.0
+
+
+@pytest.mark.parametrize("b,c,co,h,w,period,grid", [
+    (2, 160, 96, 40, 96, 14, 100),   # 126 units on 100 blocks: ranges
+                                     # across tiles, a last block going on
+    (2, 160, 96, 40, 96, 3, 4),      # partial, whole and partial tiles
+    (2, 160, 96, 40, 96, 1, 4),      # whole tiles only, 2 or 3 a block
+    (1, 32, 64, 4, 40, 3, 9),        # as many residues as pixel steps
+    (2, 512, 512, 80, 160, 11, 132),  # layer4 at the target's 80x160
+])
+def test_dilated_conv_wgrad_any_plan(gen, b, c, co, h, w, period, grid):
+    """The kernel follows any plan the C entry takes (the period at most
+    the pixel steps, the grid at most the SMs and the units): each against
+    wgrad_taps, two calls the same bits."""
+    from halo_tpu_torch.ops import dilated_conv as dc
+    x, _, g = _conv_case(gen, b, c, co, h, w, torch.bfloat16)
+    xh, gh = dc._nhwc(x), dc._nhwc(g)
+    plan = dc.wgrad_plan(b, h, w, c, co, 2, 132)._replace(period=period,
+                                                          grid=grid)
+    got = dc._wgrad(xh, gh, 2, plan)
+    again = dc._wgrad(xh, gh, 2, plan)
+    want = dc.wgrad_taps(x.float(), g.float(), 2)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    assert _bf16_steps(got, want, 1e-5 * float(want.abs().max())) <= 1.0
+
+
+def test_dilated_conv_wgrad_carries_nothing_between_calls(gen):
+    """dk at one shape, at another (other tiles, other counts on the same
+    counters), then at the first again: the first result's bits."""
+    from halo_tpu_torch.ops import dilated_conv as dc
+    x, _, g = _conv_case(gen, 2, 256, 256, 80, 160, torch.bfloat16)
+    y, _, h = _conv_case(gen, 2, 512, 512, 40, 96, torch.bfloat16)
+    xh, gh, yh, hh = dc._nhwc(x), dc._nhwc(g), dc._nhwc(y), dc._nhwc(h)
+    first = dc._wgrad(xh, gh, 2)
+    other = dc._wgrad(yh, hh, 4)
+    again = dc._wgrad(xh, gh, 2)
+    want = dc.wgrad_taps(y.float(), h.float(), 4)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), again.view(torch.int16))
+    assert _bf16_steps(other, want, 1e-5 * float(want.abs().max())) <= 1.0
 
 
 def test_dilated_conv_refuses(gen):
@@ -314,7 +363,20 @@ def test_dilated_conv_refuses(gen):
         with pytest.raises(RuntimeError, match="CUDA error"):
             kernels.check(err, "halo_dilated_conv3x3_bf16")
         assert lib.halo_dilated_conv3x3_wgrad_workspace(1, 8, 8, c, co,
-                                                        2) == -1
+                                                        2, 1, 1) == -1
+    # the weight-gradient kernel refuses a plan it cannot follow: more
+    # residues than pixel steps (8 x 8 at d = 2 is 2 steps of 4 x 16),
+    # more blocks than SMs or units (3 tiles x 1), none
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    for period, grid in ((3, 3), (1, sms + 1), (1, 4), (1, 0), (0, 1)):
+        assert lib.halo_dilated_conv3x3_wgrad_workspace(
+            1, 8, 8, 32, 32, 2, period, grid) == -1
+    assert lib.halo_dilated_conv3x3_wgrad_workspace(1, 8, 8, 32, 32, 2, 2,
+                                                    6) > 0
+    xg = torch.zeros((1, 8, 8, 32), device="cuda", dtype=torch.bfloat16)
+    plan = dc.wgrad_plan(1, 8, 8, 32, 32, 2, sms)._replace(period=3)
+    with pytest.raises(ValueError, match="refuses"):
+        dc._wgrad(xg, xg, 2, plan)
 
 
 def _int8_case(gen, b, c, co, h, w, k=1):
