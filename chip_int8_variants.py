@@ -17,10 +17,18 @@ Kernel I (csrc/int8_conv.cu):
   no-mma            no wgmma: the TMA ring and the barriers alone
   loads-only        both: what the operand loads alone take
   one-block-at-64   one block an SM at 64-wide tiles too
-Kernel Q (csrc/int8_quant.cu):
-  kernel            as built (an IEEE division an element)
-  reciprocal        a product by the reciprocal instead: not the same
-                    bits; what the division costs
+Kernel Q (csrc/int8_quant.cu), timed at phase int8's conv inputs alone,
+at the fused sites with a frozen norm's affine and the ReLU, and on the
+ASPP bottleneck's five sources:
+  kernel            as built (the IEEE quotient as a product by the
+                    reciprocal of the scale and two corrections)
+  reciprocal        the product alone, no correction: not the same bits
+                    near a rounding tie; what the corrections cost
+  division          an IEEE division a value: what the product saves
+  no-store          the rows kernel stores nothing: its loads and
+                    arithmetic alone
+  empty             the rows kernel returns at once: the launch and the
+                    one-wave grid alone
 """
 
 from __future__ import annotations
@@ -38,7 +46,9 @@ OUT = REPO / "build" / "variants"
 STORE = "      if (ho >= g.Ho || wo >= g.Wo || co >= g.Co) continue;"
 MMA = ("      wgmma_s8<N>(acc, da + 2 * kk, db + 2 * kk, (step > 0 || kk > 0) "
        "? 1 : 0);")
-DIV = "rintf(__fdiv_rn(v, sx))"
+QUOTIENT = "  const float d = fabsf(q0) < 1e30f ? q2 : q0;"
+ROWS = "quantize_rows_kernel(const Plan plan) {"
+STORE_Q = "      *reinterpret_cast<uint4*>(plan.q + static_cast<long long>(u) * kUnit) ="
 
 
 def conv_variants(src: str) -> dict:
@@ -54,10 +64,19 @@ def conv_variants(src: str) -> dict:
 
 
 def quant_variants(src: str) -> dict:
-    if DIV not in src:
-        raise SystemExit(f"int8_quant.cu no longer holds {DIV!r}")
-    return {"kernel": src, "reciprocal": src.replace(
-        DIV, "rintf(v * __frcp_rn(sx))")}
+    for text in (QUOTIENT, ROWS, STORE_Q):
+        if text not in src:
+            raise SystemExit(f"int8_quant.cu no longer holds {text!r}")
+    # a store only where a word holds an impossible pattern: the loads and
+    # the arithmetic stay, the bytes out go
+    no_store = STORE_Q.replace("      *", "      if (out.x == 0x7f7f7f7fu && "
+                               "out.y == 0x80808080u) *")
+    return {"kernel": src,
+            "reciprocal": src.replace(QUOTIENT, "  const float d = q0;"),
+            "division": src.replace(QUOTIENT,
+                                    "  const float d = __fdiv_rn(v, sx);"),
+            "no-store": src.replace(STORE_Q, no_store),
+            "empty": src.replace(ROWS, ROWS + "\n  return;")}
 
 
 def build(kernels, variants: dict, stem: str, entry: str) -> dict:
@@ -145,15 +164,21 @@ def main() -> int:
         compare(torch, kernels, quant_libs,
                 lambda: quant.quantize_nhwc(x, amax), f"Q {label} input")
         del x, wq, w_scale, packed, xq
-    parts = [(torch.randn((2, 512, 80, 160), generator=gen, device="cuda")
-              .to(torch.bfloat16)
-              .contiguous(memory_format=torch.channels_last))
-             for _ in range(4)]
-    pooled = torch.randn((2, 512, 1, 1), generator=gen, device="cuda")
-    x = torch.cat([pooled.to(torch.bfloat16).expand(-1, -1, 80, 160)] + parts,
-                  dim=1)
-    compare(torch, kernels, quant_libs, lambda: quant.quantize_nhwc(x, amax),
-            "Q the ASPP concatenation (2, 2560, 80, 160), not channels-last")
+    for label, c, h, w in chip_smoke.FUSED_SITES:
+        x = (torch.randn((2, c, h, w), generator=gen, device="cuda") * 2).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        scale, shift = chip_smoke.frozen_bn(torch, gen, c).affine(x.dtype)
+        compare(torch, kernels, quant_libs, lambda: quant.quantize_fused(
+            (x,), amax, scale, shift, True), f"Q fused {label}, B 2")
+        del x
+    sources = [(torch.randn((2, 512, 1, 1), generator=gen, device="cuda")
+                .to(torch.bfloat16).expand(-1, -1, 80, 160))] + [
+        (torch.randn((2, 512, 80, 160), generator=gen, device="cuda")
+         .to(torch.bfloat16).contiguous(memory_format=torch.channels_last))
+        for _ in range(4)]
+    compare(torch, kernels, quant_libs,
+            lambda: quant.quantize_fused(sources, amax),
+            "Q the ASPP bottleneck's five sources (2, 2560, 80, 160)")
     return 0
 
 

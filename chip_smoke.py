@@ -2368,6 +2368,41 @@ INT8_GEMMS = (
 )
 
 
+# phase int8 (1): (label, C, H, W) of the maps a frozen norm and ReLU feed
+# into kernel Q at R101's fused sites for a 640x1280 input (each
+# bottleneck's conv2 and conv3 inputs, layer2.0's strided conv2 reading
+# 160x320; the ASPP branches' and the decoder's pointwise convs)
+FUSED_SITES = (
+    ("R101 layer1 site 64", 64, 160, 320),
+    ("R101 layer2.0 conv2 site 128", 128, 160, 320),
+    ("R101 layer2 site 128", 128, 80, 160),
+    ("R101 layer3 site 256", 256, 80, 160),
+    ("R101 layer4 site 512", 512, 80, 160),
+    ("ASPP pointwise site 2048", 2048, 80, 160),
+    ("decoder.0 pointwise site 560", 560, 160, 320),
+    ("decoder.1 pointwise site 512", 512, 160, 320),
+)
+
+
+def first_source(x):
+    """A QuantConv's input tensor, or the first of its sources."""
+    return x[0] if isinstance(x, (list, tuple)) else x
+
+
+def frozen_bn(torch, gen, c):
+    """A FrozenBatchNorm2d on the device with random statistics."""
+    from halo_tpu_torch.models.layers import FrozenBatchNorm2d
+    bn = FrozenBatchNorm2d(c).to(DEVICE)
+    with torch.no_grad():
+        bn.weight.copy_(torch.rand((c,), generator=gen, device=DEVICE) + 0.5)
+        bn.bias.copy_(torch.randn((c,), generator=gen, device=DEVICE) * 0.3)
+        bn.running_mean.copy_(torch.randn((c,), generator=gen,
+                                          device=DEVICE) * 0.3)
+        bn.running_var.copy_(torch.rand((c,), generator=gen,
+                                        device=DEVICE) * 1.5 + 0.5)
+    return bn
+
+
 def int8_conv_bound(b, c, co, h, w, ho, wo, k) -> tuple:
     """bound_ms of one call of kernel I: the int8 input read once, the
     weight once, the bf16 output written once; 2 operations a
@@ -2377,12 +2412,18 @@ def int8_conv_bound(b, c, co, h, w, ho, wo, k) -> tuple:
     return bound_ms(nbytes, 2 * macs, INT8_OPS_PER_S)
 
 
-def int8_quant_bound(x) -> tuple:
-    """bound_ms of one call of kernel Q: ``x`` read once, the int8 NHWC
-    copy (channels padded to 16) written once."""
-    b, c, h, w = x.shape
-    nbytes = x.numel() * x.element_size() + b * h * w * (c + (-c % 16))
-    return bound_ms(nbytes, 0.0, INT8_OPS_PER_S)
+def int8_quant_bound(x, affine: bool = False) -> tuple:
+    """bound_ms of one call of kernel Q: ``x`` (a tensor or its sources,
+    each element its storage holds) read once, the per-channel scale and
+    shift once when ``affine``, the int8 NHWC copy (channels padded to 16)
+    written once."""
+    sources = x if isinstance(x, (list, tuple)) else [x]
+    b, _, h, w = sources[0].shape
+    c = sum(t.shape[1] for t in sources)
+    read = sum(t.untyped_storage().nbytes() for t in sources)
+    if affine:
+        read += 2 * c * sources[0].element_size()
+    return bound_ms(read + b * h * w * (c + (-c % 16)), 0.0, INT8_OPS_PER_S)
 
 
 def quantize_per_tensor_nhwc(torch, x, scale: float):
@@ -2462,8 +2503,11 @@ def int8_kernel_checks(torch, gen, report):
     wq, packed, w_scale = weights(64, 64, 3)
     quant.int8_conv_kernel(quant.quantize_nhwc(x, amax), packed, w_scale,
                            amax, 3, 1, 1, 1, torch.bfloat16)
+    quant.quantize_fused([x], amax, *frozen_bn(torch, gen, 64).affine(
+        x.dtype), relu=True)
     torch.cuda.synchronize()
-    print("int8: first launches of kernels Q and I ran", flush=True)
+    print("int8: first launches of kernels Q (alone and with the prologue) "
+          "and I ran", flush=True)
     worst, layer3, q_libs = 0.0, None, []
     for b in INT8_BATCHES:
         for label, c, co, h, w, k, s, d in INT8_CASES:
@@ -2545,25 +2589,7 @@ def int8_kernel_checks(torch, gen, report):
     print("int8 kernels: bit-exact at the edge cases (odd H and W; Co 200, "
           "40, 70, 33; C 48, 20; a padded 1x1; 5x5 stride 2 dilation 2; "
           "4x4 stride 4; float32 NCHW input)", flush=True)
-    # Q on the ASPP bottleneck's input as the model makes it: the
-    # concatenation of the broadcast global branch and four channels-last
-    # branches (not channels-last), read as it is
-    parts = [activations(2, 512, 80, 160) for _ in range(4)]
-    pooled = torch.randn((2, 512, 1, 1), generator=gen, device=DEVICE)
-    x = torch.cat([pooled.to(torch.bfloat16).expand(-1, -1, 80, 160)]
-                  + parts, dim=1)
-    del parts
-    got = quant.quantize_nhwc(x, amax)
-    torch.cuda.synchronize()
-    if not torch.equal(got, quant.quantize_nhwc_plain(x, amax)):
-        raise AssertionError("kernel Q off its plain version on the ASPP "
-                             "concatenation")
-    ms = cuda_ms(torch, lambda i: quant.quantize_nhwc(x, amax), 20)
-    q_bound, _ = int8_quant_bound(x)
-    print(f"int8 Q on the ASPP concatenation (2, 2560, 80, 160) bf16, "
-          f"strides {tuple(x.stride())}: bit-exact; {ms:.4f} ms, bound "
-          f"{q_bound:.4f} ms (bytes, {q_bound / ms:.0%})", flush=True)
-    del x, got
+    fused = int8_fused_checks(torch, gen, amax)
     # float input clipped beyond amax, and amax = 0, through int8_conv
     x = activations(2, 256, 80, 160)
     w_int8, w_scale = quant.quantize_weight(torch.randn(
@@ -2637,7 +2663,169 @@ def int8_kernel_checks(torch, gen, report):
         "launches": 0, "max_abs_err": 0.0, "ms": q_ms, "plain_ms": q_plain,
         "bound_ms": q_bound, "bound_by": "bytes",
         "library_ms": q_lib if q_same else None}
+    print("int8 Q with the prologue at R101 layer3's site, B 2, bf16: "
+          + json.dumps(fused), flush=True)
     release(torch)
+
+
+def stream_ms(torch, fn, calls: int = 50) -> float:
+    """ms a call over ``calls`` calls of ``fn`` between one pair of CUDA
+    events, queued behind a spin kernel of ~0.1 s so that the device runs
+    them back to back: a kernel's time with its launch gap, without the
+    cost of an event pair a call (``cuda_ms``)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)  # clock cycles
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def q_device_ms(torch, fn, iters: int = 10) -> float:
+    """Kernel Q's device ms a call of ``fn`` (its kernels by name, launch
+    gaps and events left out), from torch.profiler over ``iters`` calls
+    (``profiled``); 0.0 when the trace holds none."""
+    events, _ = profiled(torch, lambda: [fn() for _ in range(iters)])
+    return sum(e.self_device_time_total for e in events
+               if "quantize_" in e.key) / 1e3 / iters
+
+
+def device_share(ms: float, bound: float) -> str:
+    return (f"{ms:.4f} ms ({bound / ms:.0%} of the bound)" if ms > 0
+            else "not measured")
+
+
+def int8_fused_checks(torch, gen, amax) -> dict:
+    """Phase int8 (1), kernel Q's prologue: at every fused site's shape
+    (B = 2 and 4, bf16 and f32, channels-last) the kernel with a frozen
+    norm's affine and the ReLU against its plain version and against the
+    unfused ops (the norm module, torch.relu, Q alone), bit for bit, timed
+    beside its bound and the yardstick (those unfused ops as the parent
+    ran them); the ASPP bottleneck's five sources read in place against Q
+    of their torch.cat (the parent's route); the edge cases; the NCHW tile
+    path's time. Returns layer3's B = 2 bf16 numbers."""
+    from halo_tpu_torch.ops import quant
+
+    def channels_last(b, c, h, w, dtype):
+        x = torch.randn((b, c, h, w), generator=gen, device=DEVICE) * 2
+        return x.to(dtype).contiguous(memory_format=torch.channels_last)
+
+    def check(sources, a, bn, label, relu=True):
+        scale, shift = (bn.affine(sources[0].dtype) if bn is not None
+                        else (None, None))
+        got = quant.quantize_fused(sources, a, scale, shift, relu)
+        want = quant.quantize_fused_plain(sources, a, scale, shift, relu)
+        x = torch.cat(sources, dim=1) if len(sources) > 1 else sources[0]
+        x = bn(x) if bn is not None else x
+        unfused = quant.quantize_nhwc(torch.relu(x) if relu else x, a)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(got, unfused)):
+            raise AssertionError(f"kernel Q's prologue off its plain version "
+                                 f"or the unfused ops at {label}")
+        return scale, shift
+
+    layer3 = None
+    for b in INT8_BATCHES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for label, c, h, w in FUSED_SITES:
+                x = channels_last(b, c, h, w, dtype)
+                bn = frozen_bn(torch, gen, c)
+                scale, shift = check([x], amax, bn, label)
+                ms = cuda_ms(torch, lambda i: quant.quantize_fused(
+                    (x,), amax, scale, shift, True), 20)
+                alone = cuda_ms(torch, lambda i: quant.quantize_nhwc(
+                    x, amax), 20)
+                yard = cuda_ms(torch, lambda i: quant.quantize_nhwc(
+                    torch.relu(bn(x)), amax), 20)
+                dev = q_device_ms(torch, lambda: quant.quantize_fused(
+                    (x,), amax, scale, shift, True))
+                run = stream_ms(torch, lambda: quant.quantize_fused(
+                    (x,), amax, scale, shift, True))
+                bound, _ = int8_quant_bound(x, affine=True)
+                name = "bf16" if dtype == torch.bfloat16 else "f32"
+                print(f"int8 Q fused {label}, B {b}, {name}: ({b}, {c}, {h}, "
+                      f"{w}) bit-exact (plain, unfused ops); {ms:.4f} ms, "
+                      f"bound {bound:.4f} ms (bytes, {bound / ms:.0%}); "
+                      f"back to back {run:.4f} ms; profiler device (the "
+                      f"input in L2) {device_share(dev, bound)}; "
+                      f"yardstick FrozenBatchNorm2d + torch.relu + Q "
+                      f"{yard:.4f} ms ({yard / ms:.2f}x); Q alone "
+                      f"{alone:.4f} ms", flush=True)
+                if layer3 is None and "layer3" in label:
+                    layer3 = {"ms": ms, "back_to_back_ms": run,
+                              "device_ms": dev, "bound_ms": bound,
+                              "yardstick_ms": yard, "alone_ms": alone}
+                del x, bn, scale, shift
+        release(torch)
+    for b in INT8_BATCHES:
+        pooled = torch.randn((b, 512, 1, 1), generator=gen, device=DEVICE)
+        sources = [pooled.to(torch.bfloat16).expand(-1, -1, 80, 160)] + [
+            channels_last(b, 512, 80, 160, torch.bfloat16) for _ in range(4)]
+        check(sources, amax, None, f"the ASPP sources, B {b}", relu=False)
+        ms = cuda_ms(torch, lambda i: quant.quantize_fused(sources, amax),
+                     20)
+        dev = q_device_ms(torch, lambda: quant.quantize_fused(sources, amax))
+        run = stream_ms(torch, lambda: quant.quantize_fused(sources, amax))
+        yard = cuda_ms(torch, lambda i: quant.quantize_nhwc(
+            torch.cat(sources, dim=1), amax), 20)
+        bound, _ = int8_quant_bound(sources)
+        print(f"int8 Q on the ASPP bottleneck's five sources (the global "
+              f"branch broadcast, four channels-last (B, 512, 80, 160)), B "
+              f"{b}, bf16: bit-exact against Q of their torch.cat; {ms:.4f} "
+              f"ms, bound {bound:.4f} ms (bytes, {bound / ms:.0%}); "
+              f"back to back {run:.4f} ms; profiler device (the input in "
+              f"L2) {device_share(dev, bound)}; "
+              f"yardstick torch.cat + Q {yard:.4f} ms ({yard / ms:.2f}x)",
+              flush=True)
+        del sources, pooled
+    release(torch)
+    # edges: NaN, +-inf and -0; C = 40 and NCHW (the tile path); amax 0;
+    # sources in several layouts, one of 24 channels; the ReLU alone
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn((2, 96, 13, 17), generator=gen, device=DEVICE) * 2
+        flat = x.view(-1)
+        idx = torch.randperm(flat.numel(), generator=gen, device=DEVICE)[:64]
+        flat[idx] = torch.tensor([float("nan"), float("inf"), float("-inf"),
+                                  -0.0] * 16, device=DEVICE)
+        x = x.to(dtype)
+        zero = torch.tensor(0.0, device=DEVICE)
+        check([x.contiguous(memory_format=torch.channels_last)], amax,
+              frozen_bn(torch, gen, 96), "NaN, +-inf, -0")
+        check([x], amax, frozen_bn(torch, gen, 96), "NCHW")
+        check([channels_last(2, 40, 13, 17, dtype)], amax,
+              frozen_bn(torch, gen, 40), "C 40")
+        check([channels_last(2, 96, 13, 17, dtype)], zero,
+              frozen_bn(torch, gen, 96), "amax 0")
+        check([channels_last(2, 96, 13, 17, dtype)], amax, None,
+              "the ReLU alone")
+        mixed = [torch.randn((2, 16, 1, 1), generator=gen, device=DEVICE)
+                 .to(dtype).expand(-1, -1, 13, 17),
+                 channels_last(2, 32, 13, 17, dtype),
+                 torch.randn((2, 24, 13, 17), generator=gen,
+                             device=DEVICE).to(dtype),
+                 channels_last(2, 48, 13, 17, dtype)]
+        check(mixed, amax, frozen_bn(torch, gen, 120), "mixed sources")
+    print("int8 Q's prologue: bit-exact at the edge cases (NaN, +-inf, -0; "
+          "NCHW and C 40 on the tile path; amax 0; the ReLU alone; four "
+          "sources in three layouts, one broadcast, one of 24 channels), "
+          "bf16 and f32", flush=True)
+    x = torch.randn((2, 256, 80, 160), generator=gen, device=DEVICE).to(
+        torch.bfloat16)
+    bn = frozen_bn(torch, gen, 256)
+    scale, shift = check([x], amax, bn, "NCHW layer3")
+    ms = cuda_ms(torch, lambda i: quant.quantize_fused(
+        (x,), amax, scale, shift, True), 20)
+    bound, _ = int8_quant_bound(x, affine=True)
+    print(f"int8 Q fused on an NCHW (2, 256, 80, 160) bf16 input (the tile "
+          f"path, not the models' layout): bit-exact; {ms:.4f} ms, bound "
+          f"{bound:.4f} ms (bytes, {bound / ms:.0%})", flush=True)
+    release(torch)
+    return layer3
 
 
 def int8_layers(torch, model, shapes) -> int:
@@ -2650,6 +2838,40 @@ def int8_layers(torch, model, shapes) -> int:
         isinstance(mod, QuantConv) and not mod._small_strided(
             torch.empty((1, 1) + shapes[mod], device="meta")))
         for mod in model.modules())
+
+
+def int8_fused_sites(torch, model, shapes) -> int:
+    """The fused sites of ``model`` (a frozen norm and ReLU before a
+    QuantConv) whose conv runs int8, given each QuantConv's input (H, W):
+    kernel Q applies their norm and ReLU once a forward each."""
+    from halo_tpu_torch.tools.int8_probe import site_pairs
+    return sum(not conv._small_strided(torch.empty(
+        (1, 1) + shapes[conv], device="meta"))
+        for _, conv in site_pairs(model))
+
+
+def forward_profile(torch, model, size=(640, 1280)) -> dict:
+    """One eval forward of ``model`` (the flip pair as a batch of 2 at the
+    test entry's input, bf16 autocast) under torch.profiler: its device
+    kernels, copies, device ms, kernel Q's ms and torch.cat's count
+    (``int8_probe.profile_forward``); the host ms of the call beside it."""
+    from halo_tpu_torch.tools.int8_probe import profile_forward
+    model.eval()     # the test entry leaves its model in train mode
+    img = torch.randn((2, 3) + size, device=DEVICE)
+
+    def forward():
+        with torch.no_grad(), torch.autocast(DEVICE, dtype=torch.bfloat16):
+            return model(img, size=size)
+
+    forward()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    forward()
+    host = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    line = profile_forward(model, forward, DEVICE == "cuda")
+    line["host_ms"] = host
+    return line
 
 
 def phase_int8(torch, args, report):
@@ -2689,7 +2911,8 @@ def phase_int8(torch, args, report):
 
     def counts():
         return {"int8_conv": quant.launches, "int8_quant":
-                quant.quant_launches, "int_mm": int_mm_calls[0],
+                quant.quant_launches, "int8_quant_fused":
+                quant.fused_launches, "int_mm": int_mm_calls[0],
                 "layout_copies": quant.layout_copies,
                 "fwd": dc.launches_fwd, "dx": dc.launches_dx,
                 "dk": dc.launches_dk, "radius_map": cuda_radius.launches,
@@ -2697,6 +2920,7 @@ def phase_int8(torch, args, report):
 
     def zero_counts():
         quant.launches = quant.quant_launches = quant.layout_copies = 0
+        quant.fused_launches = 0
         int_mm_calls[0] = 0
         dc.launches_fwd = dc.launches_dx = dc.launches_dk = 0
         dc.layout_copies = 0
@@ -2712,8 +2936,8 @@ def phase_int8(torch, args, report):
         """Record the input (H, W) of every QuantConv of ``model``."""
         for mod in model.modules():
             if isinstance(mod, QuantConv):
-                mod.register_forward_pre_hook(
-                    lambda m, a: shapes.__setitem__(m, tuple(a[0].shape[-2:])))
+                mod.register_forward_pre_hook(lambda m, a: shapes.__setitem__(
+                    m, tuple(first_source(a[0]).shape[-2:])))
 
     launches_total = quant_total = 0
     with tempfile.TemporaryDirectory() as tmp, \
@@ -2823,10 +3047,12 @@ def phase_int8(torch, args, report):
                 "TPU.QUANT_EVAL", "True")
             quant.assert_calibrated(model)
             layers = int8_layers(torch, model, shapes)
+            sites = int8_fused_sites(torch, model, shapes)
             n_conv_c = sum(isinstance(m, DilatedConv3x3)
                            for m in model.modules())
             expect(f"{part} int8 test", got, {
                 "int8_conv": 2 * layers, "int8_quant": 2 * layers,
+                "int8_quant_fused": 2 * sites,
                 "int_mm": 0, "layout_copies": 0, "fwd": 0, "dx": 0,
                 "dk": 0, "radius_map": 2, "greedy_picks": 0})
             if layers <= 0 or n_conv_c:
@@ -2834,16 +3060,34 @@ def phase_int8(torch, args, report):
                                      f"{n_conv_c} kernel-C convs")
             print(f"{part} int8 model: {layers} quantised layers a forward "
                   "(one forward an image: the flip pair), each kernel Q "
-                  "then kernel I: 2 launches a layer; torch._int_mm 0, "
-                  "layout copies 0", flush=True)
+                  f"then kernel I: 2 launches a layer; {sites} of the Q "
+                  "launches apply their producer's frozen norm and ReLU; "
+                  "torch._int_mm 0, layout copies 0", flush=True)
             launches_total += got["int8_conv"]
             quant_total += got["int8_quant"]
             hold_rich_radius(f"{part} int8 test", r)
+            prof = forward_profile(torch, model)
             del r, model, shapes
             release(torch)
-            float_result, _, float_ms, _, _, _ = test_run(
+            float_result, _, float_ms, _, fmodel, _ = test_run(
                 f"{part} float test (same checkpoint)", recipe,
                 name + "_float", str(ckpt))
+            fprof = forward_profile(torch, fmodel)
+            del fmodel
+            # the ASPP concatenation is read in place by kernel Q: the int8
+            # forward makes one torch.cat fewer than the float one
+            if sites and prof["cats"] != fprof["cats"] - 1:
+                raise AssertionError(f"{part}: torch.cat {prof['cats']} "
+                                     f"times (float {fprof['cats']})")
+            print(f"{part} a forward under the profiler (B 2 at 640x1280, "
+                  f"bf16), int8 / float: device kernels {prof['kernels']} / "
+                  f"{fprof['kernels']}, copies {prof['copies']} / "
+                  f"{fprof['copies']}, device ms {prof['device_ms']:.3f} / "
+                  f"{fprof['device_ms']:.3f}, host ms {prof['host_ms']:.2f}"
+                  f" / {fprof['host_ms']:.2f}; kernel Q "
+                  f"{prof['q_ms']:.3f} device ms; torch.cat "
+                  f"{prof['cats']} / {fprof['cats']}; counters "
+                  + json.dumps(prof["counters"]), flush=True)
             print(f"{part}: int8 mIoU {result['mIoU']:.4f} against float "
                   f"{float_result['mIoU']:.4f}; second image "
                   f"{call_ms[1]:.2f} ms/img against float "
@@ -2913,12 +3157,14 @@ def phase_int8(torch, args, report):
             w_in, h_in = cfg.INPUT.INPUT_SIZE_TEST
             twin(torch.zeros((1, 3, h_in, w_in), device=DEVICE))
         layers = int8_layers(torch, twin, shapes)
+        sites = int8_fused_sites(torch, twin, shapes)
         batches = math.ceil(n / int(cfg.TPU.ACTIVE_BATCH))
         n_conv_c = sum(isinstance(m, DilatedConv3x3)
                        for m in learner.model.modules())
         blocks = got["radius_map"]
         expect("(4) int8 sweep", got, {
             "int8_conv": batches * layers, "int8_quant": batches * layers,
+            "int8_quant_fused": batches * sites,
             "int_mm": 0, "layout_copies": 0,
             "fwd": 2 * n_conv_c * steps, "dx": 2 * n_conv_c * steps,
             "dk": 2 * n_conv_c * steps, "radius_map": n * 8,

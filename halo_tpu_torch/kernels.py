@@ -44,8 +44,8 @@ _SIGNATURES = {
                                        (_I,) * 8 + (_P,),
     "halo_dilated_conv3x3_wgrad_workspace": (_I,) * 8,
     "halo_int8_conv": (_P, _P, _P, _P, _P, _I) + (_I,) * 16 + (_F, _F, _P),
-    "halo_int8_quantize": (_P, _I, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL,
-                           _LL, _I, _F, _F, _P),
+    "halo_int8_quantize": (_I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I,
+                           _F, _F, _P),
 }
 _RESTYPES = {"halo_dilated_conv3x3_wgrad_workspace": _LL}
 

@@ -31,8 +31,8 @@ from torch import nn
 
 from ..ops import hyperbolic as hyp
 from ..ops.resize import resize_bilinear
-from .layers import (ConvBNReLU, DepthwiseSeparableConv, init_conv_,
-                     reset_norms_, uniform_fan_in_)
+from .layers import (ConvBNReLU, DepthwiseSeparableConv, QuantConv,
+                     init_conv_, reset_norms_, uniform_fan_in_)
 
 
 def _resize_nchw(x, out_hw):
@@ -113,7 +113,10 @@ class ASPPDecoder(nn.Module):
         g = self.global_branch(x)
         # align-corners upsample of a 1x1 map is a broadcast
         branches.append(g.expand(-1, -1, x.shape[2], x.shape[3]))
-        y = self.bottleneck(torch.cat(branches, dim=1))
+        # a QuantConv reads the branches in place (kernel Q concatenates
+        # them in its pass, or the conv does when it runs float)
+        y = self.bottleneck(branches if isinstance(
+            self.bottleneck[0], QuantConv) else torch.cat(branches, dim=1))
         y = _resize_nchw(y, low.shape[2:])
         y = torch.cat([y, self.shortcut(low)], dim=1)
         return self.decoder[1](self.decoder[0](y))

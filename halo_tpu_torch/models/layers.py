@@ -40,13 +40,34 @@ class FrozenBatchNorm2d(nn.Module):
         self.register_buffer("bias", torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self._affine = {}
+
+    def _scale_shift(self):
+        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
+        return scale, self.bias - self.running_mean * scale
 
     def forward(self, x):
-        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
-        shift = self.bias - self.running_mean * scale
+        scale, shift = self._scale_shift()
         shape = (1, -1) + (1,) * (x.dim() - 2)
         return (x * scale.to(x.dtype).view(shape)
                 + shift.to(x.dtype).view(shape))
+
+    def affine(self, dtype):
+        """``forward``'s (scale, shift) in ``dtype``, contiguous (C,): what
+        kernel Q's prologue applies in its place. Made once a dtype and
+        kept until a buffer is replaced or changed in place (its version
+        moves: ``load_state_dict``, ``reset_norms_``)."""
+        bufs = (self.weight, self.bias, self.running_mean, self.running_var)
+        versions = tuple(b._version for b in bufs)
+        kept = self._affine.get(dtype)
+        if kept is None or kept[1] != versions or any(
+                a is not b for a, b in zip(kept[0], bufs)):
+            with torch.no_grad():
+                scale, shift = self._scale_shift()
+                kept = (bufs, versions, scale.to(dtype).contiguous(),
+                        shift.to(dtype).contiguous())
+            self._affine[dtype] = kept
+        return kept[2], kept[3]
 
 
 def make_norm(freeze_bn: bool, features: int) -> nn.Module:
@@ -91,8 +112,9 @@ class DepthwiseSeparableConv(nn.Module):
         self.pointwise_bn = make_norm(freeze_bn, out_features)
 
     def forward(self, x):
-        x = torch.relu(self.depthwise_bn(self.depthwise_conv(x)))
-        return torch.relu(self.pointwise_bn(self.pointwise_conv(x)))
+        x = norm_relu_conv(self.pointwise_conv, self.depthwise_conv(x),
+                           self.depthwise_bn, torch.relu)
+        return torch.relu(self.pointwise_bn(x))
 
 
 def dilated_conv_eligible(mode: str, channels: int, stride: int,
@@ -160,11 +182,20 @@ class QuantConv(quant_ops.QuantLayer, nn.Conv2d):
     evaluation path. Its mode: training -> the float conv; calibrating
     (``ops.quant.calibrate``) -> the float conv, plus ``amax`` = running
     max|x| and the weight snapshot (``w_int8``, ``w_scale`` and kernel I's
-    packed operand ``w_packed``); otherwise int8 (``ops.quant.int8_conv``:
-    kernels Q and I), its output in the autocast dtype when autocast is on
-    (else the input's), the bias added after. A strided conv with fewer
-    than ``_MIN_STRIDED_POSITIONS`` output positions runs the float conv
-    in every mode."""
+    packed operand ``w_packed``); otherwise int8 (kernels Q and I), its
+    output in the autocast dtype when autocast is on (else the input's),
+    the bias added after. A strided conv with fewer than
+    ``_MIN_STRIDED_POSITIONS`` output positions runs the float conv in
+    every mode.
+
+    ``forward(x, norm=None, relu=None)`` convolves ``relu(norm(x))``
+    (``input_of``): ``x`` a tensor or a list of up to five (B, C_i, H, W)
+    tensors concatenated along the channels, ``norm`` and ``relu`` the
+    producer's norm and ReLU, pending. When the conv runs int8 and the norm
+    is a ``FrozenBatchNorm2d`` (or there is none), kernel Q applies all of
+    it in its one pass (``ops.quant.quantize_fused``: the concatenation
+    read in place, the norm's ``affine``, the ReLU); otherwise they run as
+    the modules they are, then the conv."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -179,16 +210,36 @@ class QuantConv(quant_ops.QuantLayer, nn.Conv2d):
         positions = -(-x.shape[-2] // sh) * -(-x.shape[-1] // sw)
         return (sh, sw) != (1, 1) and positions < _MIN_STRIDED_POSITIONS
 
-    def forward(self, x):
-        if self.training or self.calibrating or self._small_strided(x):
+    @staticmethod
+    def input_of(x, norm=None, relu=None):
+        """The tensor ``forward(x, norm, relu)`` convolves, by the unfused
+        ops: the concatenation, then ``norm``, then ``relu``."""
+        if isinstance(x, (list, tuple)):
+            x = torch.cat(list(x), dim=1)
+        if norm is not None:
+            x = norm(x)
+        return x if relu is None else relu(x)
+
+    def forward(self, x, norm=None, relu=None):
+        first = x[0] if isinstance(x, (list, tuple)) else x
+        if self.training or self.calibrating or self._small_strided(first):
+            x = self.input_of(x, norm, relu)
             y = super().forward(x)
             if self.calibrating and not self.training:
                 self.observe(x)
             return y
-        dtype = self.out_dtype(x)
-        y = quant_ops.int8_conv(x, self.w_int8, self.w_scale, self.amax,
-                                self.stride, self.padding, self.dilation,
-                                out_dtype=dtype, packed=self.w_packed)
+        if not (norm is None or isinstance(norm, FrozenBatchNorm2d)):
+            x = first = self.input_of(x, norm, relu)
+            norm = relu = None
+        dtype = self.out_dtype(first)
+        scale, shift = (None, None) if norm is None else \
+            norm.affine(first.dtype)
+        xq = quant_ops.quantize_fused(
+            x if isinstance(x, (list, tuple)) else (x,), self.amax, scale,
+            shift, relu is not None)
+        y = quant_ops.int8_conv_kernel(
+            xq, self.w_packed, self.w_scale, self.amax, self.kernel_size,
+            self.stride, self.padding, self.dilation, dtype)
         if self.bias is not None:
             y = y + self.bias.to(dtype).view(1, -1, 1, 1)
         return y
@@ -216,6 +267,15 @@ class QuantDense(quant_ops.QuantLayer, nn.Linear):
         if self.bias is not None:
             y = y + self.bias.to(dtype)
         return y
+
+
+def norm_relu_conv(conv: nn.Module, x, norm: nn.Module, relu):
+    """``conv(relu(norm(x)))``: a ``QuantConv`` takes the norm and the ReLU
+    as kernel Q's prologue when it runs int8; any other conv gets them
+    applied first."""
+    if isinstance(conv, QuantConv):
+        return conv(x, norm, relu)
+    return conv(relu(norm(x)))
 
 
 def make_conv(in_features: int, features: int, kernel_size, stride=1,

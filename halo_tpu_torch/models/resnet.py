@@ -18,8 +18,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .layers import (DilatedConv3x3, QuantConv, dilated_conv_eligible,
-                     init_conv_, make_conv, make_norm, quant_eligible,
-                     reset_norms_)
+                     init_conv_, make_conv, make_norm, norm_relu_conv,
+                     quant_eligible, reset_norms_)
 
 
 class Bottleneck(nn.Module):
@@ -66,10 +66,9 @@ class Bottleneck(nn.Module):
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
-        y = self.relu(self.bn1(self.conv1(x)))
-        y = self.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        return self.relu(y + identity)
+        y = norm_relu_conv(self.conv2, self.conv1(x), self.bn1, self.relu)
+        y = norm_relu_conv(self.conv3, y, self.bn2, self.relu)
+        return self.relu(self.bn3(y) + identity)
 
 
 @contextlib.contextmanager

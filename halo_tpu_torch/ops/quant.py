@@ -16,13 +16,17 @@ acquisition sweep (port of ``halo_tpu/ops/quant.py``).
 
 Every quantised layer (``int8_conv`` for any conv, ``int8_dense`` for a
 dense layer, a one-tap conv over its ``(..., C)`` rows) runs two kernels:
-``quantize_nhwc`` (kernel Q, ``csrc/int8_quant.cu``) quantises the float
-activation, read in whatever layout it has, into int8 NHWC with the
-channels zero-padded to a multiple of 16; ``int8_conv_kernel`` (kernel I,
+``quantize_fused`` (kernel Q, ``csrc/int8_quant.cu``; ``quantize_nhwc`` for
+one source and no prologue) quantises the float activation, read in
+whatever layout it has, into int8 NHWC with the channels zero-padded to a
+multiple of 16, and on the way applies the work that produced it where
+the layer hands it over: a frozen BatchNorm's per-channel affine, the
+ReLU, and the concatenation of up to five sources (the ASPP branches),
+which is then never written; ``int8_conv_kernel`` (kernel I,
 ``csrc/int8_conv.cu``) convolves that with the weight ``pack_weight``
 packed at calibration, reading the absmax and the weight scales by
 pointer. On a CPU tensor both take their plain versions
-(``quantize_nhwc_plain``; ``int8_conv_plain`` or, for a one-tap GEMM,
+(``quantize_fused_plain``; ``int8_conv_plain`` or, for a one-tap GEMM,
 ``int8_gemm_plain``: float64 products of the int8 values rounded to int32,
 exact because every partial sum is an integer below 2**53 in magnitude).
 On a CUDA tensor they launch or raise; nothing falls back.
@@ -39,6 +43,7 @@ through checkpoints, ``assert_calibrated`` guards an int8 evaluation.
 
 from __future__ import annotations
 
+import array
 import warnings
 from typing import Dict, Iterable, Optional
 
@@ -55,16 +60,20 @@ _EPS = 1e-12
 _INV_127 = 1.0 / 127.0
 
 # Launches of kernel I (the int8 conv) and of kernel Q (the activation
-# quantise), each counted where it launches and nowhere else; copies made
+# quantise), each counted where it launches and nowhere else; of kernel Q's,
+# those that applied a producer's norm or ReLU (fused sites); copies made
 # to view a dense layer's input of more than four dims as kernel Q reads it
 # (none on the port's models).
 launches = 0
 quant_launches = 0
+fused_launches = 0
 layout_copies = 0
 
 _CONV_ENTRY = "halo_int8_conv"
 _QUANT_ENTRY = "halo_int8_quantize"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# Most sources kernel Q concatenates in one pass (the ASPP's five branches).
+_MAX_SOURCES = 5
 # Kernel I reads activations and weights as TMA boxes of 16-byte rows.
 _CHANNEL_ALIGN = 16
 # The packed weight's output channels are padded to a multiple of 8.
@@ -130,12 +139,33 @@ def _out_size(n, k, s, p, d):
 # ---------------------------------------------------------------------------
 
 def quantize_nhwc_plain(x, amax):
-    """Plain version of kernel Q: ``quantize_act`` of a (B, C, H, W) ``x``
-    (any strides) as int8 (B, H, W, Cp), contiguous, the channels padded
-    with zeros to Cp, a multiple of 16."""
+    """Plain version of kernel Q with one source and no prologue:
+    ``quantize_act`` of a (B, C, H, W) ``x`` (any strides) as int8 (B, H,
+    W, Cp), contiguous, the channels padded with zeros to Cp, a multiple
+    of 16."""
     xq, _ = quantize_act(x, amax)
     return F.pad(xq.permute(0, 2, 3, 1),
                  (0, -x.shape[1] % _CHANNEL_ALIGN)).contiguous()
+
+
+def quantize_fused_plain(sources, amax, scale=None, shift=None,
+                         relu=False):
+    """Plain version of kernel Q: ``quantize_nhwc_plain`` of
+    ``relu(cat(sources) * scale + shift)``, exactly the unfused ops:
+    ``torch.cat`` along the channels (none for one source), the product
+    and the sum each rounded to the sources' dtype (``scale`` and
+    ``shift``, per channel, cast to it), as ``FrozenBatchNorm2d`` rounds
+    them, and ``torch.relu`` (a NaN stays NaN); the affine (``scale`` and
+    ``shift`` together) and the ReLU are each optional."""
+    if (scale is None) != (shift is None):
+        raise ValueError("quantize_fused: scale and shift go together")
+    x = sources[0] if len(sources) == 1 else torch.cat(list(sources), 1)
+    if scale is not None:
+        shape = (1, -1, 1, 1)
+        x = x * scale.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
+    if relu:
+        x = torch.relu(x)
+    return quantize_nhwc_plain(x, amax)
 
 
 def int8_conv_plain(xq, wq, scale, stride=1, padding=0, dilation=1,
@@ -179,34 +209,78 @@ def _check_scalar(amax, x, name):
 
 
 def quantize_nhwc(x, amax):
-    """Kernel Q (``csrc/int8_quant.cu``): ``quantize_act`` of a (B, C, H,
-    W) float32 or bfloat16 ``x`` in any layout (NCHW, channels-last, a
-    view of a dense input) against ``amax`` (one float32 on ``x``'s
-    device, read by the kernel) -> int8 (B, H, W, Cp) contiguous, the
-    channels padded with zeros to Cp, a multiple of 16: kernel I's
-    operand. On a CPU tensor: ``quantize_nhwc_plain``."""
-    if not _device_is_cuda(x, "quantize_nhwc"):
-        return quantize_nhwc_plain(x, amax)
+    """Kernel Q on one (B, C, H, W) ``x`` with no prologue: ``quantize_act``
+    of ``x`` in any layout (NCHW, channels-last, a view of a dense input)
+    as kernel I's operand. See ``quantize_fused``."""
+    return quantize_fused((x,), amax)
+
+
+def _check_vector(v, c, x, name):
+    if v.dtype != x.dtype or v.device != x.device or v.dim() != 1 or \
+            v.numel() != c or not v.is_contiguous():
+        raise ValueError(f"{name}: scale and shift must be contiguous "
+                         f"({c},) {x.dtype} on {x.device}")
+
+
+def quantize_fused(sources, amax, scale=None, shift=None, relu=False):
+    """Kernel Q (``csrc/int8_quant.cu``): ``quantize_act`` of ``relu(cat(
+    sources) * scale + shift)`` against ``amax`` (one float32 on the
+    sources' device, read by the kernel) in one pass -> int8 (B, H, W,
+    Cp) contiguous, the channels padded with zeros to Cp, a multiple of
+    16: kernel I's operand. ``sources``: 1 to 5 float32 or bfloat16 (B,
+    C_i, H, W) tensors of one dtype in any layout (a (B, C_i, 1, 1) map
+    expanded over the pixels is read in place), concatenated along the
+    channels; ``scale``, ``shift``: the per-channel affine in that dtype
+    (a frozen BatchNorm's), or None; ``relu``: the ReLU after it. The
+    kernel rounds as the unfused ops do, so the bits are
+    ``quantize_fused_plain``'s, which a CPU tensor takes."""
+    x = sources[0]
+    if not _device_is_cuda(x, "quantize_fused"):
+        return quantize_fused_plain(sources, amax, scale, shift, relu)
+    if not 1 <= len(sources) <= _MAX_SOURCES:
+        raise ValueError(f"quantize_fused: {len(sources)} sources; the "
+                         f"kernel reads 1 to {_MAX_SOURCES}")
     if x.dtype not in _DTYPES:
-        raise TypeError(f"quantize_nhwc: input dtype {x.dtype}; the kernel "
-                        "reads float32 or bfloat16")
+        raise TypeError(f"quantize_fused: input dtype {x.dtype}; the "
+                        "kernel reads float32 or bfloat16")
     if x.dim() != 4:
-        raise ValueError(f"quantize_nhwc: shape {tuple(x.shape)}, want "
+        raise ValueError(f"quantize_fused: shape {tuple(x.shape)}, want "
                          "(B, C, H, W)")
-    _check_scalar(amax, x, "quantize_nhwc")
     b, c, h, w = x.shape
+    # each source: its pointer, first channel, channels and strides
+    desc = [x.data_ptr(), 0, c, *x.stride()]
+    for src in sources[1:]:
+        if src.dtype != x.dtype or src.device != x.device or \
+                src.dim() != 4 or (src.shape[0], *src.shape[2:]) != (b, h, w):
+            raise ValueError("quantize_fused: sources of other dtypes, "
+                             "devices or (B, H, W): "
+                             f"{[tuple(t.shape) for t in sources]}")
+        desc += [src.data_ptr(), c, src.shape[1], *src.stride()]
+        c += src.shape[1]
+    _check_scalar(amax, x, "quantize_fused")
+    if (scale is None) != (shift is None):
+        raise ValueError("quantize_fused: scale and shift go together")
+    if scale is not None:
+        _check_vector(scale, c, x, "quantize_fused")
+        _check_vector(shift, c, x, "quantize_fused")
     if min(b, c, h, w) <= 0 or b * h * w >= 2 ** 31 - 64:
-        raise ValueError(f"quantize_nhwc: empty or too large input "
-                         f"{tuple(x.shape)}")
+        raise ValueError(f"quantize_fused: empty or too large input "
+                         f"({b}, {c}, {h}, {w})")
+    desc = array.array("q", desc)   # alive until the entry returns
     cp = c + (-c % _CHANNEL_ALIGN)
     xq = torch.empty((b, h, w, cp), dtype=torch.int8, device=x.device)
     err = getattr(kernels.load(), _QUANT_ENTRY)(
-        x.data_ptr(), _DTYPES[x.dtype], amax.data_ptr(), xq.data_ptr(), b, c,
-        h, w, *x.stride(), cp, _EPS, _INV_127,
+        len(sources), desc.buffer_info()[0], _DTYPES[x.dtype],
+        amax.data_ptr(),
+        None if scale is None else scale.data_ptr(),
+        None if shift is None else shift.data_ptr(), int(bool(relu)),
+        xq.data_ptr(), b, h, w, cp, _EPS, _INV_127,
         kernels.current_stream(x.device))
     kernels.check(err, _QUANT_ENTRY)
-    global quant_launches
+    global quant_launches, fused_launches
     quant_launches += 1
+    if scale is not None or relu:
+        fused_launches += 1
     return xq
 
 

@@ -580,6 +580,130 @@ def test_int8_quantize_ties_bit_exact(gen, amax, dtype):
     assert torch.equal(got, want)
 
 
+# The sites where kernel Q applies its producer's frozen norm and ReLU, at
+# R101's shapes for a 640x1280 input (B = 2 and 4): (C, H, W) of the map
+# the norm reads. Each bottleneck's conv2 and conv3 inputs (layer2.0's
+# strided conv2 reads 160x320), the ASPP branches' and the decoder's
+# pointwise convs.
+FUSED_SITES = {
+    "layer1": (64, 160, 320),
+    "layer2.0-conv2": (128, 160, 320),
+    "layer2": (128, 80, 160),
+    "layer3": (256, 80, 160),
+    "layer4": (512, 80, 160),
+    "aspp-pointwise": (2048, 80, 160),
+    "decoder.0-pointwise": (560, 160, 320),
+    "decoder.1-pointwise": (512, 160, 320),
+}
+
+
+def _frozen_bn(gen, c):
+    """A FrozenBatchNorm2d on the card with random statistics."""
+    from halo_tpu_torch.models.layers import FrozenBatchNorm2d
+    bn = FrozenBatchNorm2d(c).cuda()
+    with torch.no_grad():
+        bn.weight.copy_(torch.rand((c,), generator=gen, device="cuda") + 0.5)
+        bn.bias.copy_(torch.randn((c,), generator=gen, device="cuda") * 0.3)
+        bn.running_mean.copy_(torch.randn((c,), generator=gen,
+                                          device="cuda") * 0.3)
+        bn.running_var.copy_(torch.rand((c,), generator=gen,
+                                        device="cuda") * 1.5 + 0.5)
+    return bn
+
+
+def _fused_against_plain(sources, amax, bn=None, relu=True):
+    """Kernel Q with the prologue against its plain version on the card and
+    against the unfused ops (the norm module, torch.relu, kernel Q alone),
+    all bit for bit; one launch of Q, counted as fused."""
+    from halo_tpu_torch.ops import quant
+    dtype = sources[0].dtype
+    scale, shift = bn.affine(dtype) if bn is not None else (None, None)
+    n, nf = quant.quant_launches, quant.fused_launches
+    got = quant.quantize_fused(sources, amax, scale, shift, relu)
+    torch.cuda.synchronize()
+    assert quant.quant_launches == n + 1
+    assert quant.fused_launches == nf + int(bn is not None or relu)
+    want = quant.quantize_fused_plain(sources, amax, scale, shift, relu)
+    assert got.shape == want.shape and torch.equal(got, want)
+    x = torch.cat(sources, dim=1) if len(sources) > 1 else sources[0]
+    if bn is not None:
+        x = bn(x)
+    unfused = quant.quantize_nhwc(torch.relu(x) if relu else x, amax)
+    torch.cuda.synchronize()
+    assert torch.equal(got, unfused)
+    return got
+
+
+@pytest.mark.parametrize("label", list(FUSED_SITES))
+@pytest.mark.parametrize("b", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_quantize_fused_sites_bit_exact(gen, label, b, dtype):
+    """Kernel Q with a frozen norm's affine and the ReLU at every fused
+    site's shape, channels-last as the model makes it."""
+    c, h, w = FUSED_SITES[label]
+    x = _float_input(gen, (b, c, h, w), dtype)
+    _fused_against_plain([x], torch.tensor(3.0, device="cuda"),
+                         _frozen_bn(gen, c))
+
+
+@pytest.mark.parametrize("b", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_quantize_reads_the_aspp_branches_in_place(gen, b, dtype):
+    """The ASPP bottleneck's five sources, as the model hands them over:
+    the global branch's (B, 512, 1, 1) map expanded over the pixels
+    (strides 0) and four channels-last (B, 512, 80, 160) branches, against
+    kernel Q's plain version of their torch.cat; not counted as fused."""
+    from halo_tpu_torch.ops import quant
+    pooled = torch.randn((b, 512, 1, 1), generator=gen,
+                         device="cuda").to(dtype)
+    sources = [pooled.expand(-1, -1, 80, 160)] + [
+        _float_input(gen, (b, 512, 80, 160), dtype) for _ in range(4)]
+    amax = torch.tensor(2.5, device="cuda")
+    n, nf = quant.quant_launches, quant.fused_launches
+    got = quant.quantize_fused(sources, amax)
+    want = quant.quantize_nhwc_plain(torch.cat(sources, dim=1), amax)
+    torch.cuda.synchronize()
+    assert (quant.quant_launches, quant.fused_launches) == (n + 1, nf)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["specials", "c40", "nchw", "amax0",
+                                  "mixed-sources", "relu-only"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_quantize_fused_edges(gen, case, dtype):
+    """The prologue at the edges: NaN, +-inf and -0 in the input (torch's
+    ReLU keeps a NaN, which converts to 0); C = 40 (no multiple of 16:
+    the tile path); an NCHW input (the tile path); amax = 0 (every nonzero
+    value clips); sources in several layouts, one of 24 channels and one
+    broadcast; the ReLU alone."""
+    amax = torch.tensor(0.0 if case == "amax0" else 2.0, device="cuda")
+    c = 40 if case == "c40" else 96
+    if case == "mixed-sources":
+        sources = [
+            torch.randn((2, 16, 1, 1), generator=gen,
+                        device="cuda").to(dtype).expand(-1, -1, 13, 17),
+            _float_input(gen, (2, 32, 13, 17), dtype),
+            torch.randn((2, 24, 13, 17), generator=gen,
+                        device="cuda").to(dtype),
+            _float_input(gen, (2, 48, 13, 17), dtype)]
+        _fused_against_plain(sources, amax, _frozen_bn(gen, 120))
+        return
+    x = torch.randn((2, c, 13, 17), generator=gen, device="cuda") * 2
+    if case == "specials":
+        flat = x.view(-1)
+        idx = torch.randperm(flat.numel(), generator=gen,
+                             device="cuda")[:64]
+        flat[idx] = torch.tensor([float("nan"), float("inf"),
+                                  float("-inf"), -0.0] * 16, device="cuda")
+    x = x.to(dtype)
+    if case != "nchw":
+        x = x.contiguous(memory_format=torch.channels_last)
+    bn = None if case == "relu-only" else _frozen_bn(gen, c)
+    got = _fused_against_plain([x], amax, bn)
+    if case == "amax0":
+        assert int((got[..., :c].abs() == 127).sum()) > x.numel() // 3
+
+
 def test_int8_conv_layer_matches_plain_with_clipping(gen):
     """``int8_conv`` end to end on float input: amax below max|x| clips;
     amax = 0 gives the smallest scale (1e-12 / 127), so every activation
@@ -680,9 +804,16 @@ def test_int8_conv_refuses(gen):
         1, 1, 0, 0, 1, 1, 1e-12, 1 / 127, kernels.current_stream(xq.device))
     with pytest.raises(RuntimeError, match="CUDA error"):
         kernels.check(err, "halo_int8_conv")
+    import ctypes
+    desc = (ctypes.c_longlong * 7)(y.data_ptr(), 0, 40, 2560, 64, 320, 8)
     err = lib.halo_int8_quantize(    # Cp below C at the C entry
-        y.data_ptr(), 0, amax.data_ptr(), xq.data_ptr(), 1, 40, 8, 8,
-        2560, 64, 320, 8, 32, 1e-12, 1 / 127,
-        kernels.current_stream(xq.device))
+        1, desc, 0, amax.data_ptr(), None, None, 0, xq.data_ptr(), 1, 8, 8,
+        32, 1e-12, 1 / 127, kernels.current_stream(xq.device))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kernels.check(err, "halo_int8_quantize")
+    desc = (ctypes.c_longlong * 7)(y.data_ptr(), 16, 16, 2560, 64, 320, 8)
+    err = lib.halo_int8_quantize(    # a first source not at channel 0
+        1, desc, 0, amax.data_ptr(), None, None, 0, xq.data_ptr(), 1, 8, 8,
+        32, 1e-12, 1 / 127, kernels.current_stream(xq.device))
     with pytest.raises(RuntimeError, match="CUDA error"):
         kernels.check(err, "halo_int8_quantize")

@@ -535,13 +535,18 @@ def _capture_jax(jmodel, variables, x, mit):
 
 
 def _capture_port(model, x):
-    """The port's logits and each quantised layer's input, channel-last."""
+    """The port's logits and each quantised layer's input, channel-last (a
+    QuantConv's as it convolves it: its sources concatenated, the pending
+    norm and ReLU applied)."""
     inputs = {}
 
     def keep(name, conv):
         def hook(_mod, args):
-            t = args[0].detach()
-            inputs[name] = t.permute(0, 2, 3, 1) if conv else t
+            if conv:
+                t = layers.QuantConv.input_of(*args).detach()
+                inputs[name] = t.permute(0, 2, 3, 1)
+            else:
+                inputs[name] = args[0].detach()
         return hook
 
     hooks = [mod.register_forward_pre_hook(
