@@ -8,15 +8,29 @@ Phases, each of which fails the run (non-zero exit) on any error:
   1. build   compile halo_tpu_torch/csrc/*.cu for sm_90a (one nvcc per
              source, in parallel) into build/cuda/.
   2. radius  kernel B against its plain version (dist0 in float32) on a
-             (128, 2048, 64) bf16 block and a full 1024x2048x64 map,
-             within 1e-6 relative; times kernel, plain version and
-             torch.linalg.vector_norm.
-  3. select  kernel A against its plain version (the column-cache loop),
+             (128, 2048, 64) bf16 block, a full 1024x2048x64 map and the
+             rich eval's f32 (1, 160, 320, 64) embedding, within 1e-6
+             relative; times kernel, plain version and
+             torch.linalg.vector_norm at the rich eval's shape (the
+             kernels line's), and the kernel on the block and the map.
+  3. score   the score kernel pair (S1 + S2, csrc/region_score.cu: kernel B
+             redesigned as the round's score stage) against its plain
+             version (cuda_score.region_score_plain) at 1024x2048 from
+             640x1280x19 logits and a 160x320x64 embedding, ACDC's
+             1080x1920 and a ragged shape, bf16 and float32 score dtype:
+             the entropy within 2e-6 relative to the larger of itself and
+             log(sum e^v) / log 19, the operand it is cancelled from, and
+             the radius in tanh(r/2) within 1e-6 (the raw maps), score,
+             impurity and uncertainty within 1e-5; prints the share of kernel A's picks the two
+             score maps share; times the pair, the plain version and a
+             yardstick composite of PyTorch calls beside the bound;
+             counts the device kernels of the round's call.
+  4. select  kernel A against its plain version (the column-cache loop),
              bit-exact, on a 1024x2048 map with 2331 picks, m = 5, a
              pre-active block and a tie plateau, an early-stop case, and
              a batch of 4 maps in one launch (one stops early); times
              one map, the batch (us a pick) and the plain version.
-  4. conv    kernel C (the dilated 3x3 conv) against its plain version,
+  5. conv    kernel C (the dilated 3x3 conv) against its plain version,
              forward, dx and dk through autograd, at the train step's
              shapes (B = 2, the source's 90x160: 256 ch d=2, 512 ch d=2,
              512 ch d=4, bf16, 256 ch d=2 float32; the target's 80x160:
@@ -31,30 +45,34 @@ Phases, each of which fails the run (non-zero exit) on any error:
              bound, the profiler's time of each of its kernels, and its
              plan (ops/dilated_conv.wgrad_plan) with the L2 bytes it
              reckons.
-  5. slice   the acquisition round of configs/gtav/source_target.yaml
+  6. slice   the acquisition round of configs/gtav/source_target.yaml
              (DeepLab-v3+ R101, hyperbolic head with HFR, 640x1280 input,
              entropy x radius, 1% a round) from a seeded random init over a
              synthetic 1024x2048 Cityscapes tree: 2331 picks an image,
-             every mask PNG and indicator written, both kernels launched
-             on the path (launch counters; kernel A once a batch),
-             ms/img by stage; then kernel A held bit-exact (and timed) and
-             kernel B within 1e-6 against their plain versions on the
-             first image's real score map and embedding.
-  6. train   halo_tpu_torch.train.main on the same recipe with
+             every mask PNG and indicator written, the kernels launched
+             on the path (launch counters: S1 and S2 once an image, kernel
+             B never, kernel A once a batch), ms/img by stage; then on the
+             first image's real outputs S1's raw maps against the plain
+             version (uncertainty within 1e-5 of its largest value,
+             radius within 1e-6 in tanh(r/2)) and S2's maps against torch's
+             normalisation of them (1e-6), kernel A held bit-exact (and
+             timed) on its score map and kernel B within 1e-6 on its
+             embedding's first native block.
+  7. train   halo_tpu_torch.train.main on the same recipe with
              TPU.DENSE_CONV_MODE pallas (source 2x720x1280, target
              2x640x1280) over synthetic GTAV (1914x1052) and Cityscapes
              trees: round 1 at step 0, 8 train steps, validation on
              2 images, checkpoints. Checks masks, finite losses, moved
              parameters and unchanged FrozenBN buffers, kernel C's
-             launches (50 forward + 50 dx + 50 dk a step) and A's and
-             B's, the mIoU, last.ckpt loading with strict=True, and kernel
+             launches (50 forward + 50 dx + 50 dk a step), A's and the
+             score pair's (B none), the mIoU, last.ckpt loading with strict=True, and kernel
              C (fwd, dx, dk) on the first step's real layer3/layer4
              activations and cotangents; prints ms/step (median of steps
              3-8), stages and peak memory, then ms/step with
              TPU.DENSE_CONV_MODE conv; in each mode the median of 5 steps
              on one device-resident batch between CUDA events (no loader).
              --profile adds kernel C's wrapper split by function.
-  7. protocols  the pipeline on the same model width with
+  8. protocols  the pipeline on the same model width with
              TPU.DENSE_CONV_MODE pallas over synthetic SYNTHIA (1280x760,
              16-bit labels) and Cityscapes trees: (a) SYNTHIA source
              pretraining, 3 steps, 16 classes (kernel C's dk launches as
@@ -68,7 +86,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
              3 steps, no round. Kernel launches are counted around each
              run; each run prints ms/step (or ms/img), loader wait and
              peak memory.
-  8. families  the other DeepLab models and the control arm, full width,
+  9. families  the other DeepLab models and the control arm, full width,
              TPU.DENSE_CONV_MODE pallas, launch counts zeroed before and
              read after each run: (e) configs/gtav/ripu.yaml (Euclidean
              v3+, 512 channels, LCR, purity ripu) with MODEL.WEIGHTS a
@@ -86,7 +104,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
              (also with TPU.REMAT), _resnet152 and _resnext101_32x8d at
              2x640x1280, kernel-C launches by the eligibility rule (8, 25,
              38, 0 convs; a rematerialised block's twice forward).
-  9. acdc    the Cityscapes -> ACDC recipes at full width (segformer_mitb4,
+ 10. acdc    the Cityscapes -> ACDC recipes at full width (segformer_mitb4,
              hyperbolic head, 64 reduced channels, no HFR, 1280x640
              inputs), over a synthetic Cityscapes source tree and an ACDC
              tree at 1920x1080 (fog, night, rain, snow; 2 train frames each
@@ -94,8 +112,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
              NVlabs-layout MiT-B4 .pth written from --seed: (1)
              train.main on configs/acdc/source_target.yaml, round 1 at
              step 0 (2304 picks an image, masks and indicators under the
-             nested stems; launches A 2, B 9 an image, C 0), 3 steps,
-             validation on 2 images; kernel A bit-exact (and timed) and
+             nested stems; launches A 2, S1 + S2 one an image, C 0), 3 steps,
+             validation on 2 images; the score kernels held on the first
+             image's real outputs as in phase slice, kernel A bit-exact
+             (and timed) and
              kernel B within 1e-6 on each 128-row block of the first
              image's real 1080x1920 maps, the ragged 56-row block
              included; the SDPA kernels the attention runs; (2)
@@ -105,7 +125,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
              backward of segformer_mitb4 at 2x640x1280, with and without
              TPU.REMAT: the median of 3 steps, and the device's busy time
              in a fourth under torch.profiler.
- 10. int8    int8 (W8A8) evaluation and the int8 sweep, every quantised
+ 11. int8    int8 (W8A8) evaluation and the int8 sweep, every quantised
              layer kernel Q (the activation quantise, csrc/int8_quant.cu)
              then kernel I (the int8 conv, csrc/int8_conv.cu): (1) Q and I
              bit for bit against their plain versions (float64 sums of the
@@ -134,12 +154,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
              configs/gtav/source_target.yaml with TPU.QUANT_SWEEP True and
              TPU.DENSE_CONV_MODE pallas, round 1 at step 0 and 2 steps:
              2331 picks an image from the int8 twin, masks and indicators,
-             launches (A 2, B 64, Q and I in the sweep, C in the steps),
+             launches (A 2, S1 + S2 8, Q and I in the sweep, C in the steps),
              every twin amax > 0, the round's stages, then a float round
              on the same weights (stages and the share of its labelled
              pixels the int8 round labelled). Every earlier phase runs at
              its full depth.
- 11. parallel  data parallelism over torch.distributed at the recipe's
+ 12. parallel  data parallelism over torch.distributed at the recipe's
              full width (configs/gtav/source_target.yaml, TPU.DENSE_CONV_MODE
              pallas, the synthetic GTAV and Cityscapes trees of phase
              train, round 1 at step 0 over the 8 images, 3 steps,
@@ -147,11 +167,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
              with --parallel-child), joined with a timeout: (a) one rank
              over NCCL (RANK 0, WORLD_SIZE 1) beside the same run with no
              group: masks and indicators byte-identical, losses within
-             1e-5 relative, launches equal (A 2, B 64, C 250 + 150 + 150),
+             1e-5 relative, launches equal (A 2, S1 + S2 8, C 250 + 150 + 150),
              ms/step of each on one device-resident batch between CUDA
              events; (b) two ranks sharing the card over gloo
              (device cuda:0, SOLVER.BATCH_SIZE 2 each): each scores 4
-             images (A 1, B 32), masks byte-identical with (a)'s,
+             images (A 1, S1 + S2 4), masks byte-identical with (a)'s,
              bit-identical parameters after 3 steps, one mIoU, checkpoints
              and metrics.jsonl by rank 0 alone, last.ckpt loading with
              strict=True into a model built in one process, ms/step of
@@ -160,7 +180,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
              one kernel-B launch a rank) against floating_region_score of
              the whole map within 1e-6, for both purity pairs. The phase's
              launches join the kernels line.
- 12. quality  the user tools (halo_tpu_torch/tools/), after kernels A,
+ 13. quality  the user tools (halo_tpu_torch/tools/), after kernels A,
              B and C are held against their plain versions at the shapes
              the tools give them (C fwd, dx, dk at resnettiny's layer4
              conv2, 2 and 4 x 512 x 12 x 16 bf16, d = 2; B on 96x128x16
@@ -298,12 +318,12 @@ def card_line() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-def ball_points(torch, shape, gen):
-    """bf16 points of the Poincare ball: random directions, radii uniform
-    in [0, 0.95)."""
+def ball_points(torch, shape, gen, dtype=None):
+    """Points of the Poincare ball (bf16 unless ``dtype`` says): random
+    directions, radii uniform in [0, 0.95)."""
     x = torch.randn(shape, generator=gen, device=DEVICE)
     r = torch.rand(shape[:-1] + (1,), generator=gen, device=DEVICE) * 0.95
-    return (x / x.norm(dim=-1, keepdim=True) * r).to(torch.bfloat16)
+    return (x / x.norm(dim=-1, keepdim=True) * r).to(dtype or torch.bfloat16)
 
 
 def phase_radius(torch, gen, report):
@@ -319,30 +339,246 @@ def phase_radius(torch, gen, report):
         worst_abs = max(worst_abs, float((got - want).abs().max()))
         print(f"radius {name} {tuple(x.shape)}: max rel diff {rel:.3e}",
               flush=True)
+    # the rich eval's map (a 640x1280 input's f32 (1, 160, 320, 64)
+    # embedding), which is what the main path gives kernel B since the
+    # round's score stage went to the score kernel pair; eight of them
+    # (105 MB > L2) in turn so each launch reads from device memory
+    rich = [ball_points(torch, (1, 160, 320, 64), gen, dtype=torch.float32)
+            for _ in range(8)]
+    got = cuda_radius.radius_map(rich[0])
+    want = cuda_radius.radius_map_reference(rich[0])
+    torch.cuda.synchronize()
+    rel = max_rel(torch, got, want)
+    worst = max(worst, rel)
+    worst_abs = max(worst_abs, float((got - want).abs().max()))
+    print(f"radius rich eval (1, 160, 320, 64) f32: max rel diff {rel:.3e}",
+          flush=True)
     if worst > 1e-6:
         raise AssertionError(f"kernel B off its plain version: {worst}")
-    # main-path shape: one 128-row block; rotate over the 8 blocks of the
-    # full map (268 MB > L2) so each launch reads from device memory
-    blocks = [full[i * 128:(i + 1) * 128] for i in range(8)]
-    ms = cuda_ms(torch, lambda i: cuda_radius.radius_map(blocks[i % 8]), 64)
+    n_r = 160 * 320
+    ms = cuda_ms(torch, lambda i: cuda_radius.radius_map(rich[i % 8]), 64)
     plain = cuda_ms(torch, lambda i: cuda_radius.radius_map_reference(
-        blocks[i % 8]), 16)
+        rich[i % 8]), 16)
     lib = cuda_ms(torch, lambda i: torch.linalg.vector_norm(
-        blocks[i % 8], dim=-1, dtype=torch.float32), 64)
+        rich[i % 8], dim=-1, dtype=torch.float32), 64)
+    b_ms, b_by = bound_ms(n_r * 64 * 4 + n_r * 4, n_r * 64 * 2)
+    print(f"radius rich eval (1, 160, 320, 64) f32: kernel {ms:.4f} ms, "
+          f"plain {plain:.4f} ms, vector_norm {lib:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})", flush=True)
+    # the 128-row bf16 block the round gave B before the score kernel pair
+    # (printed only: no path launches B at this shape now)
+    blocks = [full[i * 128:(i + 1) * 128] for i in range(8)]
+    blk_ms = cuda_ms(torch, lambda i: cuda_radius.radius_map(blocks[i % 8]),
+                     64)
     ms_full = cuda_ms(torch, lambda i: cuda_radius.radius_map(full), 16)
     n = 128 * 2048
-    b_ms, b_by = bound_ms(n * 64 * 2 + n * 4, n * 64 * 2)
+    b_blk, _ = bound_ms(n * 64 * 2 + n * 4, n * 64 * 2)
     b_full, _ = bound_ms(8 * (n * 64 * 2 + n * 4), 8 * n * 64 * 2)
-    print(f"radius 128x2048x64 bf16: kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms, vector_norm {lib:.4f} ms, bound {b_ms:.4f} ms; "
-          f"full 1024x2048x64: kernel {ms_full:.4f} ms, bound "
-          f"{b_full:.4f} ms", flush=True)
+    print(f"radius 128x2048x64 bf16 block: kernel {blk_ms:.4f} ms, bound "
+          f"{b_blk:.4f} ms; full 1024x2048x64: kernel {ms_full:.4f} ms, "
+          f"bound {b_full:.4f} ms", flush=True)
     report["radius_map"] = {
         "name": "radius_map", "route": "cuda",
         "source": "halo_tpu_torch/csrc/radius.cu",
         "replaces": "halo_tpu/active/pallas_radius.py:100",
         "launches": 0, "max_abs_err": worst_abs, "ms": ms, "plain_ms": plain,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+
+
+# phase score: (label, native (H, W), logits (h, w), embedding (h2, w2),
+# picks an image at 1% and m = 5 as the round makes them)
+SCORE_CASES = (("cityscapes", (1024, 2048), (640, 1280), (160, 320), 2331),
+               ("acdc", (1080, 1920), (640, 1280), (160, 320), 2304),
+               ("ragged", (1000, 1900), (637, 1277), (157, 311), 2112))
+SCORE_IMAGES = 8  # inputs rotated in the timings (8 x 75 MB > L2)
+
+
+def score_inputs(torch, gen, logits_hw, embed_hw, n: int):
+    """``n`` (logits, embedding) pairs as the hyperbolic head returns them:
+    float32 logits of 19 classes (normal x 3) and a float32 64-wide ball
+    embedding, radii uniform in [0, 0.95)."""
+    out = []
+    for _ in range(n):
+        lg = torch.randn(tuple(logits_hw) + (19,), generator=gen,
+                         device=DEVICE) * 3.0
+        out.append((lg, ball_points(torch, tuple(embed_hw) + (64,), gen,
+                                    dtype=torch.float32)))
+    return out
+
+
+def score_yardstick(torch, lg, em, native, dtype):
+    """The score stage as a composite of PyTorch calls: F.interpolate
+    (bilinear, align_corners), the entropy, torch.linalg.vector_norm and
+    atanh, a 3x3 avg_pool2d x 9 and aminmax normalisation."""
+    import torch.nn.functional as F
+
+    def up(x):
+        return F.interpolate(x.permute(2, 0, 1)[None], size=native,
+                             mode="bilinear", align_corners=True)[0].to(
+                                 dtype).float()
+    x = up(lg).clamp(-60.0, 60.0)
+    e = x.exp()
+    s, t = e.sum(0), (x * e).sum(0)
+    ent = (s.log() - t / s) / math.log(19.0)
+    norm = torch.linalg.vector_norm(up(em), dim=0).clamp_min(1e-15)
+    rad = 2.0 * torch.atanh(norm.clamp_max(1 - 1e-7))
+    unc = F.avg_pool2d(ent[None, None], 3, stride=1, padding=1)[0, 0] * 9.0
+
+    def normalize(m):
+        lo, hi = torch.aminmax(m)
+        return (m - lo) / (hi - lo)
+    unc, rad = normalize(unc), normalize(rad)
+    return rad * unc, rad, unc
+
+
+def entropy_scale(torch, lg, native, dtype):
+    """Per native pixel, log(sum e^v) / log 19 of the upsampled, cast and
+    clamped logits v: the larger operand of the entropy's last subtraction
+    (log s - t / s) / log 19. Float32 sums in another order move each
+    operand by a few units in its last place, so near-certain pixels (a
+    small entropy cancelled from a large log s) lose relative accuracy."""
+    from halo_tpu_torch.ops.resize import device_table, resize_by_table
+    dev = lg.device
+    up = resize_by_table(lg.float(), device_table(native[0], lg.shape[0], dev),
+                         device_table(native[1], lg.shape[1], dev))
+    up = up.to(dtype).float().clamp(-60.0, 60.0)
+    return torch.logsumexp(up, dim=-1).abs() / math.log(19.0)
+
+
+def entropy_err(torch, got, want, scale) -> tuple:
+    """(largest |got - want| over max(want, scale), largest relative diff,
+    share of pixels beyond 2e-6 relative)."""
+    diff = (got - want).abs()
+    return (float((diff / torch.maximum(want.abs(), scale)).max()),
+            max_rel(torch, got, want),
+            float((diff > 2e-6 * want.abs()).float().mean()))
+
+
+def hold_score_maps(torch, lg, em, native, label) -> float:
+    """The score kernels on one image's real head outputs, held in two
+    parts, each well conditioned: S1's raw maps (region_maps) against
+    the plain version's (the windowed uncertainty within 1e-5 of its
+    largest value, the radius in t = tanh(r/2) within 1e-6), and S2's
+    normalised maps against the normalisation of S1's own raw maps in
+    torch (within 1e-6). The normalised maps against the plain version's
+    are printed, not held: at a seeded random init the entropy is near
+    log 19 everywhere, and dividing by its small range magnifies the
+    rounding of the channel sums. Returns the largest S2 difference."""
+    from halo_tpu_torch.active import cuda_score
+    from halo_tpu_torch.active.scoring import normalize_map
+    kw = dict(score_dtype=torch.bfloat16)
+    unc, rad = cuda_score.region_maps(lg, em, native, **kw)
+    unc_p, rad_p = cuda_score.region_maps_plain(lg, em, native, **kw)
+    maps = cuda_score.region_score(lg, em, native, **kw)
+    plain = cuda_score.region_score_plain(lg, em, native, **kw)
+    torch.cuda.synchronize()
+    unc_err = float((unc - unc_p).abs().max() / unc_p.abs().max())
+    t_diff = float((torch.tanh(rad / 2) - torch.tanh(rad_p / 2)).abs().max())
+    imp_n, unc_n = normalize_map(rad), normalize_map(unc)
+    s2_err = max(float((a - b).abs().max())
+                 for a, b in zip(maps, (imp_n * unc_n, imp_n, unc_n)))
+    vs_plain = max(float((a - b).abs().max()) for a, b in zip(maps, plain))
+    print(f"{label}: S1's raw uncertainty within {unc_err:.3e} of its largest "
+          f"value and radius within {t_diff:.3e} in tanh(r/2) of the plain "
+          f"version's; S2's maps within {s2_err:.3e} of torch's "
+          f"normalisation of S1's maps; the normalised maps against the "
+          f"plain version's: max abs diff {vs_plain:.3e} (range of the "
+          f"uncertainty {float(unc_p.max() - unc_p.min()):.3e})", flush=True)
+    if unc_err > 1e-5 or t_diff > 1e-6 or s2_err > 1e-6:
+        raise AssertionError(f"the score kernels off their plain version on "
+                             f"the {label}")
+    return s2_err
+
+
+def phase_score(torch, gen, report):
+    """The score kernel pair (S1 + S2, csrc/region_score.cu) against its
+    plain version on the card: the round's 1024x2048, ACDC's 1080x1920
+    and a ragged shape, score dtype bf16 and float32. Gates: the entropy
+    within 2e-6 relative to the larger of itself and log(sum e^v) / log 19
+    (``entropy_scale``: plain 2e-6 relative fails where a near-certain
+    pixel's small entropy is cancelled from a large log s; the plain
+    relative difference and the share of pixels beyond it are printed)
+    and the radius in t = tanh(r/2) within 1e-6 (pixel_entropy, not
+    normalised: the kernel's raw maps), score, impurity and uncertainty
+    within 1e-5 absolute. Prints the share of
+    kernel A's picks the two score maps have in common; times the pair,
+    the plain version and the yardstick composite (8 images in turn),
+    each beside the bound from the bytes; counts the device kernels of one
+    round's call from the profiler."""
+    from halo_tpu_torch.active import cuda_score, cuda_select
+    from halo_tpu_torch.active.scoring import fused_upsample_region_score
+    worst = 0.0
+    timed = {}
+    for label, native, lhw, ehw, picks in SCORE_CASES:
+        lg, em = score_inputs(torch, gen, lhw, ehw, 1)[0]
+        for dtype in (torch.bfloat16, torch.float32):
+            name = f"{label} {native[0]}x{native[1]} {str(dtype)[6:]}"
+            kw = dict(score_dtype=dtype, halo=0)
+            ent, rad = cuda_score.region_maps(lg, em, native, **kw)
+            ent_p, rad_p = cuda_score.region_maps_plain(lg, em, native, **kw)
+            got = cuda_score.region_score(lg, em, native, score_dtype=dtype)
+            want = cuda_score.region_score_plain(lg, em, native,
+                                                 score_dtype=dtype)
+            torch.cuda.synchronize()
+            ent_rel, ent_plain_rel, ent_share = entropy_err(
+                torch, ent, ent_p, entropy_scale(torch, lg, native, dtype))
+            t_diff = float((torch.tanh(rad / 2) - torch.tanh(rad_p / 2))
+                           .abs().max())
+            errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+            kw = dict(num_picks=picks, mask_radius=5)
+            pk = cuda_select.greedy_picks(got[0], **kw)[0]
+            pk_p = cuda_select.greedy_picks(want[0], **kw)[0]
+            common = len(set(map(tuple, pk.tolist()))
+                         & set(map(tuple, pk_p.tolist()))) / picks
+            print(f"score {name}: entropy max diff {ent_rel:.3e} of "
+                  f"max(itself, log s / log 19) (plain relative "
+                  f"{ent_plain_rel:.3e}, {ent_share:.2e} of the pixels "
+                  "beyond 2e-6 relative), radius "
+                  f"max |t| diff {t_diff:.3e}; score / impurity / "
+                  f"uncertainty max abs diff {errs[0]:.3e} / {errs[1]:.3e} "
+                  f"/ {errs[2]:.3e}; kernel A's picks common to the two "
+                  f"score maps {common:.4f}", flush=True)
+            if ent_rel > 2e-6 or t_diff > 1e-6 or max(errs) > 1e-5:
+                raise AssertionError(f"the score kernels off their plain "
+                                     f"version at {name}")
+            worst = max(worst, *errs)
+            if label != "ragged":
+                timed[name] = (native, lhw, ehw, dtype)
+    ms = {}
+    for name, (native, lhw, ehw, dtype) in timed.items():
+        imgs = score_inputs(torch, gen, lhw, ehw, SCORE_IMAGES)
+        n_in = 4 * (lhw[0] * lhw[1] * 19 + ehw[0] * ehw[1] * 64)
+        n_px = native[0] * native[1]
+        b_ms, b_by = bound_ms(n_in + 3 * 4 * n_px, n_px * (11 * 19 + 8 * 64))
+        k = cuda_ms(torch, lambda i: cuda_score.region_score(
+            *imgs[i % SCORE_IMAGES], native, score_dtype=dtype), 24)
+        pl = cuda_ms(torch, lambda i: cuda_score.region_score_plain(
+            *imgs[i % SCORE_IMAGES], native, score_dtype=dtype), 8)
+        yd = cuda_ms(torch, lambda i: score_yardstick(
+            torch, *imgs[i % SCORE_IMAGES], native, dtype), 8)
+        ms[name] = (k, pl, yd, b_ms, b_by)
+        print(f"score {name}: kernels S1 + S2 {k:.4f} ms, plain "
+              f"{pl:.4f} ms, yardstick (F.interpolate, entropy, "
+              f"vector_norm + atanh, avg_pool2d, aminmax) {yd:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}; {100 * b_ms / k:.0f}% of the "
+              "bound)", flush=True)
+        del imgs
+    # the round's call: device kernels a call, from the profiler
+    lg, em = score_inputs(torch, gen, (640, 1280), (160, 320), 1)[0]
+    fused_upsample_region_score(lg, em, (1024, 2048))
+    events, _ = profiled(torch, lambda: fused_upsample_region_score(
+        lg, em, (1024, 2048), score_dtype=torch.bfloat16))
+    print(f"score: the round's call (1024x2048 bf16) runs "
+          f"{sum(e.count for e in events)} device kernels: " + json.dumps(
+              {e.key[:60]: [e.count, round(e.self_device_time_total / 1e3, 4)]
+               for e in events}), flush=True)
+    k, pl, yd, b_ms, b_by = next(iter(ms.values()))  # cityscapes, bf16
+    report["region_score"] = {
+        "name": "region_score", "route": "cuda",
+        "source": "halo_tpu_torch/csrc/region_score.cu",
+        "replaces": "halo_tpu/active/pallas_radius.py:100",
+        "launches": 0, "max_abs_err": worst, "ms": k, "plain_ms": pl,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def plateau_map(torch, gen, h, w):
@@ -426,14 +662,9 @@ def phase_select(torch, gen, report, num_picks=2331, m=5):
 def bf16_steps(torch, got, want) -> tuple:
     """(largest |got - want| in bf16 steps of the larger magnitude, the same
     after forgiving 1e-5 of max|want|): near zero the order of the float32
-    sums decides which way a bf16 output rounds."""
-    got, want = got.float(), want.float()
-    mag = torch.maximum(got.abs(), want.abs()).clamp_min(2.0 ** -126)
-    step = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-    diff = (got - want).abs()
-    floor = 1e-5 * float(want.abs().max())
-    return (float((diff / step).max()),
-            float(((diff - floor).clamp_min(0) / step).max()))
+    sums decides which way a bf16 output rounds (``tools/wgrad_probe``)."""
+    from halo_tpu_torch.tools import wgrad_probe
+    return wgrad_probe.bf16_steps(got, want)
 
 
 def check_conv(torch, dc, x, wt, g, d, label) -> dict:
@@ -441,7 +672,11 @@ def check_conv(torch, dc, x, wt, g, d, label) -> dict:
     autograd of each. bf16: at
     most one bf16 step apart beyond 1e-5 of max|out| (dk: of wgrad_taps on
     float32 operands, the sums the kernel rounds once); f32: within 1e-5
-    of max|out|. Returns the largest absolute difference of each part."""
+    of max|out|. A bf16 dk beyond that prints its worst element against
+    the float32 and the float64 sums (wgrad_taps on the operands widened
+    exactly) and that element's sum of |terms|. Returns the largest
+    absolute difference of each part."""
+    from halo_tpu_torch.tools import wgrad_probe
     xk = x.detach().clone().requires_grad_(True)
     wk = wt.detach().clone().requires_grad_(True)
     got = dc.dilated_conv3x3(xk, wk, d)
@@ -472,6 +707,9 @@ def check_conv(torch, dc, x, wt, g, d, label) -> dict:
             detail = f"{rel:.2e} of max|out|"
         print(f"conv {label} {part}: max abs diff {err:.3e}, {detail}",
               flush=True)
+        if not ok and part == "dk" and x.dtype == torch.bfloat16:
+            print(f"conv {label} dk: " + wgrad_probe.dk_worst(
+                a, e, x.detach(), g.detach(), d), flush=True)
         if not ok:
             raise AssertionError(f"kernel C {part} off its plain version "
                                  f"at {label}: {detail}")
@@ -690,7 +928,7 @@ def summarize_profile(prof, wall_s: float, path: str) -> dict:
 
 
 def phase_slice(torch, args, report):
-    from halo_tpu_torch.active import cuda_radius, cuda_select
+    from halo_tpu_torch.active import cuda_radius, cuda_score, cuda_select
     from halo_tpu_torch.active.region_selection import region_selection
     from halo_tpu_torch.active.scoring import fused_upsample_region_score
     from halo_tpu_torch.config import get_default_cfg
@@ -739,6 +977,7 @@ def phase_slice(torch, args, report):
                                            ProfilerActivity.CUDA])
         cuda_radius.launches = 0
         cuda_select.launches = 0
+        cuda_score.launches = cuda_score.launches_s2 = 0
         stages = {}
         with profiler as prof:
             t0 = time.perf_counter()
@@ -746,14 +985,16 @@ def phase_slice(torch, args, report):
                                      device=DEVICE, stage_seconds=stages)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        launches = {"radius_map": cuda_radius.launches,
+        launches = {"region_score": cuda_score.launches,
                     "greedy_picks": cuda_select.launches}
+        s2_launches, b_launches = cuda_score.launches_s2, cuda_radius.launches
         n = stats["images"]
         per_img = {k: v / max(n, 1) * 1e3 for k, v in sorted(stages.items())}
         print(f"round 0: {stats}; {wall / max(n, 1) * 1e3:.1f} ms/img wall; "
               "stages ms/img " + json.dumps(
                   {k: round(v, 3) for k, v in per_img.items()}), flush=True)
-        print(f"launches on the main path: {launches}", flush=True)
+        print(f"launches on the main path: {launches}; S2 {s2_launches}, "
+              f"kernel B {b_launches}", flush=True)
         if args.profile:
             summarize_profile(prof, wall, args.profile)
 
@@ -772,6 +1013,12 @@ def phase_slice(torch, args, report):
         if launches["greedy_picks"] != batches:
             raise AssertionError(f"kernel A launched {launches['greedy_picks']}"
                                  f" times for {batches} batches of one size")
+        if (launches["region_score"] != n or s2_launches != n
+                or b_launches != 0):
+            raise AssertionError(f"the score kernels S1 {launches} S2 "
+                                 f"{s2_launches} and kernel B {b_launches} "
+                                 f"times for {n} images (want S1 and S2 "
+                                 "once an image, B never)")
         loader = build_active_loader(cfg, num_workers=0)
         for entry in loader.dataset.data_list:
             mask = load_mask_png(entry["label_mask"])
@@ -793,8 +1040,9 @@ def phase_slice(torch, args, report):
             if not (torch.isfinite(logits).all() and
                     bool((embed.norm(dim=-1) < 1).all())):
                 raise AssertionError("forward outputs not finite / in ball")
-            score, _, _ = fused_upsample_region_score(
-                logits[0], embed[0], (1024, 2048), score_dtype=torch.bfloat16)
+            score = fused_upsample_region_score(
+                logits[0], embed[0], (1024, 2048),
+                score_dtype=torch.bfloat16)[0]
             if not bool(torch.isfinite(score).all()):
                 raise AssertionError("score map not finite")
             got = cuda_select.greedy_picks(score, num_picks=picks_per_img,
@@ -806,6 +1054,11 @@ def phase_slice(torch, args, report):
             rad = cuda_radius.radius_map(block)
             rad_plain = cuda_radius.radius_map_reference(block)
         same_picks(torch, got, want, "real score map")
+        with torch.no_grad():
+            map_err = hold_score_maps(torch, logits[0], embed[0],
+                                      (1024, 2048), "first image's real maps")
+        report["region_score"]["max_abs_err"] = max(
+            report["region_score"]["max_abs_err"], map_err)
         kw = dict(num_picks=picks_per_img, mask_radius=5)
         ms = cuda_ms(torch, lambda i: cuda_select.greedy_picks(score, **kw),
                      5, warmup=1)
@@ -963,7 +1216,7 @@ def phase_train(torch, args, report):
     import statistics
 
     from halo_tpu_torch import train
-    from halo_tpu_torch.active import cuda_radius, cuda_select
+    from halo_tpu_torch.active import cuda_radius, cuda_score, cuda_select
     from halo_tpu_torch.data import mask_cache
     from halo_tpu_torch.data.masks import load_indicator, load_mask_png
     from halo_tpu_torch.engine.state import load_state_dict_file
@@ -1015,6 +1268,7 @@ def phase_train(torch, args, report):
         dc.launches_fwd = dc.launches_dx = dc.launches_dk = 0
         dc.layout_copies = 0
         cuda_radius.launches = cuda_select.launches = 0
+        cuda_score.launches = 0
         t0 = time.perf_counter()
         try:
             learner = train.main(argv("pallas", TRAIN_STEPS, "[0]",
@@ -1027,6 +1281,7 @@ def phase_train(torch, args, report):
         counts = {"fwd": dc.launches_fwd, "dx": dc.launches_dx,
                   "dk": dc.launches_dk, "layout_copies": dc.layout_copies,
                   "radius_map": cuda_radius.launches,
+                  "region_score": cuda_score.launches,
                   "greedy_picks": cuda_select.launches}
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         cfg = learner.cfg
@@ -1094,7 +1349,8 @@ def phase_train(torch, args, report):
               flush=True)
         if (n_conv != 25 or counts["fwd"] != want_fwd
                 or counts["dx"] != want_dx or counts["dk"] != want_dx
-                or counts["radius_map"] <= 0
+                or counts["radius_map"] != 0
+                or counts["region_score"] != len(entries)
                 or counts["greedy_picks"] <= 0):
             raise AssertionError(f"kernel launches on the train path: "
                                  f"{counts}")
@@ -1229,7 +1485,7 @@ def phase_protocols(torch, args, report):
 
     from halo_tpu_torch import test as test_entry
     from halo_tpu_torch import train
-    from halo_tpu_torch.active import cuda_radius, cuda_select
+    from halo_tpu_torch.active import cuda_radius, cuda_score, cuda_select
     from halo_tpu_torch.data import mask_cache
     from halo_tpu_torch.engine import learners
     from halo_tpu_torch.engine.state import load_state_dict_file
@@ -1243,15 +1499,18 @@ def phase_protocols(torch, args, report):
     def counts():
         return {"fwd": dc.launches_fwd, "dx": dc.launches_dx,
                 "dk": dc.launches_dk, "radius_map": cuda_radius.launches,
+                "region_score": cuda_score.launches,
                 "greedy_picks": cuda_select.launches}
 
     def zero_counts():
         dc.launches_fwd = dc.launches_dx = dc.launches_dk = 0
         dc.layout_copies = 0
         cuda_radius.launches = cuda_select.launches = 0
+        cuda_score.launches = 0
 
     def expect(label, got, want):
-        want = {**want, "dk": want["dx"]}  # every backward needs dx and dk
+        # every backward needs dx and dk; the score pair runs in rounds
+        want = {"region_score": 0, **want, "dk": want["dx"]}
         if got != want:
             raise AssertionError(f"{label}: launches {got}, want {want}")
         print(f"{label}: launches {got}", flush=True)
@@ -1322,11 +1581,10 @@ def phase_protocols(torch, args, report):
                             "source_free", src_ckpt,
                             "ACTIVE.SELECT_ITER", "[0]")
         batches = math.ceil(args.images / int(sf.cfg.TPU.ACTIVE_BATCH))
-        if got["radius_map"] <= 0:
-            raise AssertionError(f"(b) kernel B never launched: {got}")
         expect("(b) source_free", got, {
             "fwd": n_conv * (steps + batches), "dx": n_conv * steps,
-            "radius_map": got["radius_map"], "greedy_picks": batches})
+            "radius_map": 0, "region_score": args.images,
+            "greedy_picks": batches})
         if sf.active_round != 2:
             raise AssertionError(f"(b) rounds: {sf.active_round - 1}")
         # round 1 ran on (a)'s weights: the resume took
@@ -1377,6 +1635,9 @@ def phase_protocols(torch, args, report):
         n_val = len(call_ms)
         expect("(c) test", got, {"fwd": n_conv * n_val, "dx": 0,
                                  "radius_map": n_val, "greedy_picks": 0})
+        # kernel B's path since the round scores with S1 + S2: the test
+        # entry's rich eval step
+        report["radius_map"]["launches"] += got["radius_map"]
         if n_val != 2 or not ({"mIoU", "mAcc", "aAcc", "iou_class",
                                "mIoU*"} <= set(result)) or not all(
                 math.isfinite(v) for v in (result["mIoU"], result["mIoU*"])):
@@ -1496,7 +1757,7 @@ def phase_families(torch, args, report):
 
     from halo_tpu_torch import test as test_entry
     from halo_tpu_torch import train
-    from halo_tpu_torch.active import cuda_radius, cuda_select
+    from halo_tpu_torch.active import cuda_radius, cuda_score, cuda_select
     from halo_tpu_torch.active.region_selection import (random_arm_seed,
                                                         region_selection)
     from halo_tpu_torch.config import get_default_cfg
@@ -1517,15 +1778,18 @@ def phase_families(torch, args, report):
     def counts():
         return {"fwd": dc.launches_fwd, "dx": dc.launches_dx,
                 "dk": dc.launches_dk, "radius_map": cuda_radius.launches,
+                "region_score": cuda_score.launches,
                 "greedy_picks": cuda_select.launches}
 
     def zero_counts():
         dc.launches_fwd = dc.launches_dx = dc.launches_dk = 0
         dc.layout_copies = 0
         cuda_radius.launches = cuda_select.launches = 0
+        cuda_score.launches = 0
 
     def expect(label, got, want):
-        want = {**want, "dk": want["dx"]}  # every backward needs dx and dk
+        # every backward needs dx and dk; the score pair runs in rounds
+        want = {"region_score": 0, **want, "dk": want["dx"]}
         if got != want:
             raise AssertionError(f"{label}: launches {got}, want {want}")
         print(f"{label}: launches {got}", flush=True)
@@ -1715,10 +1979,10 @@ def phase_families(torch, args, report):
                             "deeplabv2", "MODEL.NAME", "deeplabv2_resnet101",
                             "MODEL.WEIGHTS", str(weights))
         w_in, h_in = v2.cfg.INPUT.INPUT_SIZE_TEST
-        blocks = args.images * math.ceil(1024 / 128)  # 128-row blocks
         expect("(f) deeplabv2 hyper", got, {
             "fwd": n_conv * (2 * steps + batches), "dx": 2 * n_conv * steps,
-            "radius_map": blocks, "greedy_picks": batches})
+            "radius_map": 0, "region_score": args.images,
+            "greedy_picks": batches})
         ckpt = str(Path(v2.cfg.SAVE_DIR) / "last.ckpt")
         del v2
         release(torch)
@@ -1957,7 +2221,7 @@ def phase_acdc(torch, args, report):
 
     from halo_tpu_torch import test as test_entry
     from halo_tpu_torch import train
-    from halo_tpu_torch.active import cuda_radius, cuda_select
+    from halo_tpu_torch.active import cuda_radius, cuda_score, cuda_select
     from halo_tpu_torch.active.scoring import fused_upsample_region_score
     from halo_tpu_torch.config import get_default_cfg
     from halo_tpu_torch.data import mask_cache
@@ -1977,15 +2241,18 @@ def phase_acdc(torch, args, report):
     def counts():
         return {"fwd": dc.launches_fwd, "dx": dc.launches_dx,
                 "dk": dc.launches_dk, "radius_map": cuda_radius.launches,
+                "region_score": cuda_score.launches,
                 "greedy_picks": cuda_select.launches}
 
     def zero_counts():
         dc.launches_fwd = dc.launches_dx = dc.launches_dk = 0
         dc.layout_copies = 0
         cuda_radius.launches = cuda_select.launches = 0
+        cuda_score.launches = 0
 
     def expect(label, got, want):
-        want = {**want, "dk": want["dx"]}  # every backward needs dx and dk
+        # every backward needs dx and dk; the score pair runs in rounds
+        want = {"region_score": 0, **want, "dk": want["dx"]}
         if got != want:
             raise AssertionError(f"{label}: launches {got}, want {want}")
         print(f"{label}: launches {got}", flush=True)
@@ -2038,9 +2305,8 @@ def phase_acdc(torch, args, report):
         entries = learner.active_loader.dataset.data_list
         n_img = len(entries)
         batches = math.ceil(n_img / 4)
-        blocks = math.ceil(h_nat / 128)   # kernel B's 128-row blocks
-        expect("acdc train", got, {"fwd": 0, "dx": 0,
-                                   "radius_map": n_img * blocks,
+        expect("acdc train", got, {"fwd": 0, "dx": 0, "radius_map": 0,
+                                   "region_score": n_img,
                                    "greedy_picks": batches})
         picks = math.ceil(h_nat * w_nat * cfg.ACTIVE.BUDGET
                           / len(cfg.ACTIVE.SELECT_ITER) / 9)
@@ -2129,9 +2395,11 @@ def phase_acdc(torch, args, report):
             if not (bool(torch.isfinite(logits).all())
                     and bool((embed.norm(dim=-1) < 1).all())):
                 raise AssertionError("acdc forward not finite / in ball")
-            score, _, _ = fused_upsample_region_score(
+            score = fused_upsample_region_score(
                 logits[0], embed[0], (h_nat, w_nat),
-                score_dtype=torch.bfloat16)
+                score_dtype=torch.bfloat16)[0]
+            s_err = hold_score_maps(torch, logits[0], embed[0],
+                                    (h_nat, w_nat), "acdc first image")
             kw = dict(num_picks=picks, mask_radius=cfg.ACTIVE.MASK_RADIUS_K)
             a_got = cuda_select.greedy_picks(score, **kw)
             t0 = time.perf_counter()
@@ -2140,6 +2408,8 @@ def phase_acdc(torch, args, report):
             a_plain = (time.perf_counter() - t0) * 1e3
             native = resize_bilinear(embed[0].float(), (h_nat, w_nat))
             native = native.to(torch.bfloat16)
+        report["region_score"]["max_abs_err"] = max(
+            report["region_score"]["max_abs_err"], s_err)
         same_picks(torch, a_got, a_want, "real ACDC score map")
         a_ms = cuda_ms(torch, lambda i: cuda_select.greedy_picks(score, **kw),
                        5, warmup=1)
@@ -2883,7 +3153,7 @@ def phase_int8(torch, args, report):
     counters are zeroed before each run and read at once after it."""
     from halo_tpu_torch import test as test_entry
     from halo_tpu_torch import train
-    from halo_tpu_torch.active import cuda_radius, cuda_select
+    from halo_tpu_torch.active import cuda_radius, cuda_score, cuda_select
     from halo_tpu_torch.active.region_selection import region_selection
     from halo_tpu_torch.data import mask_cache
     from halo_tpu_torch.data.build import build_active_loader
@@ -2916,6 +3186,7 @@ def phase_int8(torch, args, report):
                 "layout_copies": quant.layout_copies,
                 "fwd": dc.launches_fwd, "dx": dc.launches_dx,
                 "dk": dc.launches_dk, "radius_map": cuda_radius.launches,
+                "region_score": cuda_score.launches,
                 "greedy_picks": cuda_select.launches}
 
     def zero_counts():
@@ -2925,6 +3196,7 @@ def phase_int8(torch, args, report):
         dc.launches_fwd = dc.launches_dx = dc.launches_dk = 0
         dc.layout_copies = 0
         cuda_radius.launches = cuda_select.launches = 0
+        cuda_score.launches = 0
 
     def expect(label, got, want):
         if got != want:
@@ -3054,7 +3326,8 @@ def phase_int8(torch, args, report):
                 "int8_conv": 2 * layers, "int8_quant": 2 * layers,
                 "int8_quant_fused": 2 * sites,
                 "int_mm": 0, "layout_copies": 0, "fwd": 0, "dx": 0,
-                "dk": 0, "radius_map": 2, "greedy_picks": 0})
+                "dk": 0, "radius_map": 2, "region_score": 0,
+                "greedy_picks": 0})
             if layers <= 0 or n_conv_c:
                 raise AssertionError(f"{part}: {layers} int8 layers, "
                                      f"{n_conv_c} kernel-C convs")
@@ -3161,20 +3434,20 @@ def phase_int8(torch, args, report):
         batches = math.ceil(n / int(cfg.TPU.ACTIVE_BATCH))
         n_conv_c = sum(isinstance(m, DilatedConv3x3)
                        for m in learner.model.modules())
-        blocks = got["radius_map"]
         expect("(4) int8 sweep", got, {
             "int8_conv": batches * layers, "int8_quant": batches * layers,
             "int8_quant_fused": batches * sites,
             "int_mm": 0, "layout_copies": 0,
             "fwd": 2 * n_conv_c * steps, "dx": 2 * n_conv_c * steps,
-            "dk": 2 * n_conv_c * steps, "radius_map": n * 8,
+            "dk": 2 * n_conv_c * steps, "radius_map": 0, "region_score": n,
             "greedy_picks": batches})
         launches_total += got["int8_conv"]
         quant_total += got["int8_quant"]
         per_img = {k: v / n * 1e3 for k, v in sorted(stages.items())}
         print(f"(4) int8 sweep: {stats}; {n} masks and indicators written "
               f"and consistent; twin amax all > 0 (min {min(amax):.4g} over "
-              f"{len(amax)} layers); kernel B {blocks} blocks; round stages "
+              f"{len(amax)} layers); score kernels {got['region_score']} "
+              "pairs; round stages "
               "ms/img " + json.dumps({k: round(v, 3) for k, v in
                                       per_img.items()})
               + f" ({sum(per_img.values()):.1f} in all); the learner's "
@@ -3308,7 +3581,7 @@ def parallel_child(spec_path: str) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     from halo_tpu_torch import kernels, train
-    from halo_tpu_torch.active import cuda_radius, cuda_select
+    from halo_tpu_torch.active import cuda_radius, cuda_score, cuda_select
     from halo_tpu_torch.engine import learners
     from halo_tpu_torch.ops import dilated_conv as dc
     from halo_tpu_torch.parallel import mesh
@@ -3333,6 +3606,7 @@ def parallel_child(spec_path: str) -> int:
     try:
         dc.launches_fwd = dc.launches_dx = dc.launches_dk = 0
         cuda_radius.launches = cuda_select.launches = 0
+        cuda_score.launches = 0
         stages = {}
         learner = train.main(spec["argv"], device=device,
                              stage_seconds=stages, backend=spec["backend"])
@@ -3341,6 +3615,7 @@ def parallel_child(spec_path: str) -> int:
         out = {"launches": {"fwd": dc.launches_fwd, "dx": dc.launches_dx,
                             "dk": dc.launches_dk,
                             "radius_map": cuda_radius.launches,
+                            "region_score": cuda_score.launches,
                             "greedy_picks": cuda_select.launches},
                "history": learner.history, "saved": list(saved),
                "best_miou": learner.best_miou,
@@ -3465,8 +3740,8 @@ def phase_parallel(torch, args, report):
         n_conv = 25
         want = {"fwd": n_conv * (2 * PARALLEL_STEPS + 2 + 2),
                 "dx": 2 * n_conv * PARALLEL_STEPS,
-                "dk": 2 * n_conv * PARALLEL_STEPS, "radius_map": 64,
-                "greedy_picks": 2}
+                "dk": 2 * n_conv * PARALLEL_STEPS, "radius_map": 0,
+                "region_score": 8, "greedy_picks": 2}
         if one["launches"] != want:
             raise AssertionError(f"(a): launches {one['launches']}, want "
                                  f"{want}")
@@ -3489,7 +3764,8 @@ def phase_parallel(torch, args, report):
              "seed": args.seed, "spatial": args.seed} for r in range(2)])
         for r, out in enumerate(ranks):
             counts = out["launches"]
-            if (counts["greedy_picks"] != 1 or counts["radius_map"] != 32
+            if (counts["greedy_picks"] != 1 or counts["radius_map"] != 0
+                    or counts["region_score"] != 4
                     or counts["dx"] != 2 * n_conv * PARALLEL_STEPS
                     or counts["fwd"] != n_conv * (2 * PARALLEL_STEPS + 2)
                     or out["num_devices"] != 2):
@@ -3563,6 +3839,7 @@ def phase_parallel(torch, args, report):
             counts = out["launches"]
             report["greedy_picks"]["launches"] += counts["greedy_picks"]
             report["radius_map"]["launches"] += counts["radius_map"]
+            report["region_score"]["launches"] += counts["region_score"]
             report["dilated_conv3x3"]["launches"] += (counts["fwd"]
                                                       + counts["dx"])
             report["dilated_conv3x3_wgrad"]["launches"] += counts["dk"]
@@ -3614,12 +3891,14 @@ def quality_kernel_checks(torch, gen, report):
     parts'): C forward, dx and dk at resnettiny's one kernel-C conv,
     layer4's conv2 (512 channels, d = 2, a 12x16 map at 96x128) in the
     A/B's train step (B = 2) and round (B = 4), with phase conv's
-    tolerance; B within 1e-6 relative on the round's bf16 (96, 128, 16)
-    block, the probe's float32 one and the quickstart's float32
+    tolerance; the score kernels at the round's shapes (96x128 logits of 19
+    classes and a 12x16x16 embedding to the native 96x128, bf16) within
+    1e-5 of their plain version; B within 1e-6 relative on the probe's
+    float32 (96, 128, 16) map and the quickstart's float32
     (256, 512, 64) map; A bit for bit on a round's stack of four 96x128
     maps (28 picks, m = 5: ties, a labelled block, one that stops early)
     and on the quickstart's 256x512 map (100 picks)."""
-    from halo_tpu_torch.active import cuda_radius, cuda_select
+    from halo_tpu_torch.active import cuda_radius, cuda_score, cuda_select
     from halo_tpu_torch.ops import dilated_conv as dc
 
     h, w = QUALITY_MAP
@@ -3637,10 +3916,20 @@ def quality_kernel_checks(torch, gen, report):
                          f"resnettiny layer4 512ch d=2 B={b} 12x16 bf16")
         errs = {k: max(v, got[k]) for k, v in errs.items()}
 
+    lg = torch.randn((h, w, 19), generator=gen, device=DEVICE) * 3.0
+    em = ball_points(torch, (h // 8, w // 8, QUALITY_EMBED), gen,
+                     dtype=torch.float32)
+    got = cuda_score.region_score(lg, em, (h, w))
+    want = cuda_score.region_score_plain(lg, em, (h, w))
+    torch.cuda.synchronize()
+    worst_s = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    print(f"quality score kernels, the A/B round's {h}x{w} map: score, "
+          f"impurity, uncertainty max abs diff {worst_s:.3e}", flush=True)
+    if worst_s > 1e-5:
+        raise AssertionError(f"the score kernels off their plain version "
+                             f"at the A/B round's shapes: {worst_s}")
     worst_b = 0.0
     for label, x in (
-            ("A/B round block bf16", ball_points(
-                torch, (h, w, QUALITY_EMBED), gen)),
             ("radius probe f32", ball_points(
                 torch, (h, w, QUALITY_EMBED), gen).float()),
             ("quickstart f32", ball_points(
@@ -3680,7 +3969,7 @@ def quality_kernel_checks(torch, gen, report):
           f"map (100 picks)", flush=True)
     for name, err in (("dilated_conv3x3", max(errs["fwd"], errs["dx"])),
                       ("dilated_conv3x3_wgrad", errs["dk"]),
-                      ("radius_map", worst_b)):
+                      ("radius_map", worst_b), ("region_score", worst_s)):
         report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
 
 
@@ -3690,7 +3979,7 @@ def phase_quality(torch, args, report):
     (c) the mIoU-parity command on a seeded R101 Lightning checkpoint, (d)
     the quickstart. Launch counters are zeroed before each part and read
     at once after it; the phase's launches join the kernels line."""
-    from halo_tpu_torch.active import cuda_radius, cuda_select
+    from halo_tpu_torch.active import cuda_radius, cuda_score, cuda_select
     from halo_tpu_torch.ops import dilated_conv as dc
     from halo_tpu_torch.tools import (acquisition_quality, quickstart,
                                       radius_rarity, verify_parity)
@@ -3700,12 +3989,14 @@ def phase_quality(torch, args, report):
 
     def counts():
         return {"greedy_picks": cuda_select.launches,
-                "radius_map": cuda_radius.launches, "fwd": dc.launches_fwd,
+                "radius_map": cuda_radius.launches,
+                "region_score": cuda_score.launches, "fwd": dc.launches_fwd,
                 "dx": dc.launches_dx, "dk": dc.launches_dk}
 
     def zero_counts():
         dc.launches_fwd = dc.launches_dx = dc.launches_dk = 0
         cuda_radius.launches = cuda_select.launches = 0
+        cuda_score.launches = 0
 
     phase = {k: 0 for k in counts()}
     seconds = {}
@@ -3751,7 +4042,8 @@ def phase_quality(torch, args, report):
                                  f"{none}: an annotated arm not above none")
         rounds, batches = 2, math.ceil(12 / 4)  # 12 target images, 4 a batch
         if (got["greedy_picks"] != 2 * rounds * batches
-                or got["radius_map"] != rounds * 12
+                or got["radius_map"] != 0
+                or got["region_score"] != rounds * 12
                 or not got["fwd"] > got["dx"] == got["dk"] > 0):
             raise AssertionError(f"(a) launches {got}")
         print(f"quality (a) A/B, seed 0, budget {out['budget']}: halo / "
@@ -3763,7 +4055,7 @@ def phase_quality(torch, args, report):
               f"{shifted / out['random_budget_on_shifted']:.2f}x random's); "
               f"on the rare classes halo {out['halo_budget_on_rare']:.4f}, "
               f"random {out['random_budget_on_rare']:.4f}; launches A "
-              f"{got['greedy_picks']}, B {got['radius_map']}, C "
+              f"{got['greedy_picks']}, S1 + S2 {got['region_score']}, C "
               f"{got['fwd']} + {got['dx']} + {got['dk']}; {card}",
               flush=True)
         for name, run in runs.items():
@@ -3862,6 +4154,7 @@ def phase_quality(torch, args, report):
 
     report["greedy_picks"]["launches"] += phase["greedy_picks"]
     report["radius_map"]["launches"] += phase["radius_map"]
+    report["region_score"]["launches"] += phase["region_score"]
     report["dilated_conv3x3"]["launches"] += phase["fwd"] + phase["dx"]
     report["dilated_conv3x3_wgrad"]["launches"] += phase["dk"]
     print("quality: part seconds " + json.dumps(
@@ -3869,7 +4162,7 @@ def phase_quality(torch, args, report):
         + json.dumps(phase), flush=True)
 
 
-KERNELS = ("greedy_picks", "radius_map", "dilated_conv3x3",
+KERNELS = ("greedy_picks", "radius_map", "region_score", "dilated_conv3x3",
            "dilated_conv3x3_wgrad", "int8_conv", "int8_quant")
 
 
@@ -3918,7 +4211,7 @@ def main() -> int:
         # checkpoints one phase writes and a later one reads
         report = {"work": Path(work)}
         seconds = {}
-        for phase in (phase_radius, phase_select, phase_conv):
+        for phase in (phase_radius, phase_score, phase_select, phase_conv):
             t0 = time.perf_counter()
             phase(torch, gen, report)
             seconds[phase.__name__[6:]] = time.perf_counter() - t0
@@ -3930,6 +4223,9 @@ def main() -> int:
             seconds[phase.__name__[6:]] = time.perf_counter() - t0
     print("phase seconds " + json.dumps(
         {k: round(v, 1) for k, v in seconds.items()}), flush=True)
+    idle = [k for k in KERNELS if report[k]["launches"] <= 0]
+    if idle:
+        raise AssertionError(f"kernels no path launched: {idle}")
     print(json.dumps({"kernels": [report[k] for k in KERNELS]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,10 @@ per-pixel tensors (H, W, C).
 
 On a CUDA tensor the 'radius'/'hyper' purity map comes from kernel B
 (``cuda_radius.radius_map``); on a CPU tensor from its plain version.
+The round's scorer, ``fused_upsample_region_score``, sends the recipes'
+types to the region-score kernel pair (``cuda_score``), which does the
+upsample, the per-pixel maps, the window sum and the normalisation in two
+launches an image (``score_route``).
 """
 
 from __future__ import annotations
@@ -17,66 +21,9 @@ import torch
 import torch.distributed as dist
 
 from ..ops.resize import _contract_w, _interp_matrix, device_matrix
-from . import cuda_radius
-
-# The reference normalizes entropy by log(19) even for 16-class SYNTHIA.
-_LOG19 = math.log(19.0)
-
-# The one-pass entropy clamps logits to +-60 so exp() needs no max shift.
-_ENTROPY_CLAMP = 60.0
-
-
-def box_filter(x, size: int):
-    """(size x size) sliding-window sum over the first two axes with zero
-    padding, separable, as explicit shifted adds in the JAX package's
-    order. (The JAX package switches to ``lax.reduce_window`` above size
-    9; sums there may differ in the last bit.)"""
-    if size % 2 != 1:
-        raise ValueError(f"box_filter: window size {size} is not odd")
-    r = size // 2
-    out = x
-    for d in (0, 1):
-        n = out.shape[d]
-        zeros = torch.zeros_like(out.narrow(d, 0, 1)).expand(
-            *[r if i == d else -1 for i in range(out.dim())])
-        xp = torch.cat([zeros, out, zeros], dim=d)
-        acc = xp.narrow(d, 0, n)
-        for k in range(1, size):
-            acc = acc + xp.narrow(d, k, n)
-        out = acc
-    return out
-
-
-def _min_max(x):
-    return torch.min(x), torch.max(x)
-
-
-def normalize_map(x, min_max=_min_max):
-    """Global min-max normalization; ``min_max(x) -> (lo, hi)`` gives the
-    extremes (of the whole map when ``x`` is a shard of it)."""
-    lo, hi = min_max(x)
-    return (x - lo) / (hi - lo)
-
-
-def pixel_entropy(p):
-    """Per-pixel predictive entropy / log(19). p: (H, W, C) softmax."""
-    return torch.sum(-p * torch.log(p + 1e-6), dim=-1) / _LOG19
-
-
-def entropy_from_logits(x, precise: bool = False):
-    """Predictive-entropy map from (H, W, C) logits.
-
-    precise=True: softmax then -p log(p + 1e-6). precise=False: the
-    shift-free identity H = log(s) - t/s with s = sum e^x, t = sum x e^x,
-    on logits clamped to +-60.
-    """
-    if precise:
-        return pixel_entropy(torch.softmax(x, dim=-1))
-    x = torch.clamp(x, -_ENTROPY_CLAMP, _ENTROPY_CLAMP)
-    e = torch.exp(x)
-    s = torch.sum(e, dim=-1)
-    t = torch.sum(x * e, dim=-1)
-    return (torch.log(s) - t / s) / _LOG19
+from . import cuda_radius, cuda_score
+from .score_maps import (_min_max, box_filter, entropy_from_logits,
+                         normalize_map, pixel_entropy)  # noqa: F401
 
 
 def region_impurity(predict, num_classes: int, size: int, box=box_filter):
@@ -154,7 +101,17 @@ def _score_tail(pix, shape, device, *, unc_type: str, pur_type: str,
     else:
         # 'none' and the reference's dead 'hyperbolic'/'certainty' options
         unc = torch.zeros(shape, dtype=torch.float32, device=device)
+    return _purity_tail(unc, pix, shape, device, pur_type=pur_type,
+                        size=size, num_classes=num_classes, K=K,
+                        normalize=normalize, box=box, min_max=min_max)
 
+
+def _purity_tail(unc, pix, shape, device, *, pur_type: str, K: int,
+                 normalize: bool, size: int = 3, num_classes: int = 19,
+                 box=box_filter, min_max=_min_max):
+    """The purity map from the per-pixel maps, the uncertainty divided by
+    the window's pixel count where the purity has one, both normalised,
+    and their product: (score, impurity, uncertainty)."""
     if pur_type in ("ripu", "oracle_ripu"):
         imp, count = region_impurity(pix["predict"], num_classes, size, box)
     elif pur_type == "hyper":
@@ -193,6 +150,27 @@ def floating_region_score(logits, embed=None, ground_truth=None, *,
                        num_classes=num_classes, K=K, normalize=normalize)
 
 
+# Which scorer ``fused_upsample_region_score`` runs for each type:
+# "kernel", the region-score kernel pair (``cuda_score.region_score``:
+# csrc/region_score.cu on a CUDA tensor, its plain version on a CPU one),
+# or "blocks", the loop over row blocks of the native map with kernel B
+# for a radius. A pair of types takes the kernel when both of its types do.
+UNCERTAINTY_ROUTE = {"entropy": "kernel", "pixel_entropy": "kernel",
+                     "oracle_acc": "blocks", "none": "blocks",
+                     "hyperbolic": "blocks", "certainty": "blocks"}
+PURITY_ROUTE = {"radius": "kernel", "hyper": "kernel", "ripu": "blocks",
+                "oracle_ripu": "blocks", "euc_norm": "blocks",
+                "none": "blocks"}
+
+
+def score_route(unc_type: str, pur_type: str) -> str:
+    """'kernel' or 'blocks' (an unknown type: 'blocks', which raises for
+    an unknown purity)."""
+    both = (UNCERTAINTY_ROUTE.get(unc_type, "blocks"),
+            PURITY_ROUTE.get(pur_type, "blocks"))
+    return "kernel" if both == ("kernel", "kernel") else "blocks"
+
+
 def fused_upsample_region_score(logits_in, embed_in=None, native_hw=None,
                                 ground_truth=None, *,
                                 score_dtype=torch.bfloat16,
@@ -203,17 +181,35 @@ def fused_upsample_region_score(logits_in, embed_in=None, native_hw=None,
                                 normalize: bool = True, c: float = 1.0):
     """floating_region_score with the native-resolution upsample folded in.
 
-    A plain loop over ``block_rows``-row blocks of the native map: each
-    block is interpolated with the same banded align-corners contractions
-    as ``resize_bilinear`` (row matrix sliced to the block), cast
-    f32 -> ``score_dtype`` like the materializing path, and reduced to the
-    per-pixel maps at once, so the native (H, W, C) logits and embedding
-    never exist whole.
-
     logits_in: (h, w, C) model-output logits; embed_in: (h2, w2, E)
     feature-resolution embedding or None; native_hw: (H, W);
     ground_truth: (H, W) labels at native resolution (oracle_* types).
+
+    The recipes' types (``score_route`` 'kernel') go to the score kernel
+    pair: ``cuda_score.region_score`` (S1 + S2, two launches an image on a
+    CUDA tensor) for purity 'radius'; for 'hyper' ``cuda_score.
+    region_maps`` (S1) and the histogram tail here.
+    The others run a plain loop over ``block_rows``-row blocks of the
+    native map: each block is interpolated with the same banded
+    align-corners contractions as ``resize_bilinear`` (row matrix sliced
+    to the block), cast f32 -> ``score_dtype`` like the materializing
+    path, and reduced to the per-pixel maps at once, so the native
+    (H, W, C) logits and embedding never exist whole.
     """
+    if score_route(unc_type, pur_type) == "kernel":
+        if unc_type == "entropy" and size % 2 != 1:
+            raise ValueError(f"fused_upsample_region_score: window size "
+                             f"{size} is not odd")
+        opts = dict(score_dtype=score_dtype, c=c,
+                    halo=size // 2 if unc_type == "entropy" else 0)
+        if pur_type == "radius":
+            return cuda_score.region_score(logits_in, embed_in, native_hw,
+                                           normalize=normalize, **opts)
+        unc, radius = cuda_score.region_maps(logits_in, embed_in, native_hw,
+                                             **opts)
+        return _purity_tail(unc, {"radius": radius}, tuple(unc.shape),
+                            unc.device, pur_type=pur_type, K=K,
+                            normalize=normalize)
     H, W = int(native_hw[0]), int(native_hw[1])
     blk = min(block_rows, H)
 

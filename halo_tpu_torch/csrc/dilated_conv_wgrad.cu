@@ -46,11 +46,14 @@
 //    division by a runtime shape on the path to a wait or a load costs
 //    about half a step (the probe's `divide` variant puts them back).
 //  - The tensor cores accumulate in float32 with less care than a
-//    rounded add: over a run of several hundred steps the error passed a
-//    bf16 step beyond 1e-5 of max|dk| at 512 channels. So a run is at
-//    most kFlush = 128 steps; a longer segment adds each run into float32
-//    sums in shared memory (the ring's top 96 KB, which leaves 4 stages)
-//    and takes them back at its end.
+//    rounded add: over runs of up to 128 steps (88 at layer3) the error
+//    reached 33 bf16 steps beyond 1e-5 of max|dk| on an element whose
+//    terms cancel, where float32 sums rounded to nearest stayed within it
+//    (tools/wgrad_probe.py --step0). So a run is at most kFlush = 8 steps
+//    (512 pixels' products), and each thread adds the runs into float32
+//    sums in registers, rounded to nearest: in 40 step-0 captures runs of
+//    8 stayed within half a bf16 step, as runs of 1 did, at 4% more time
+//    than runs of 128 (runs of 1: 34-45% more).
 //  - The split is the wrapper's plan (ops/dilated_conv.py:wgrad_plan):
 //    each tile's KT pixel steps are dealt into P residues (kt mod P) and
 //    the T*P (tile, residue) units cut, tile by tile, into G <= SMs equal
@@ -96,15 +99,14 @@ constexpr int kAlign = 32;             // the C and Co rule (supports())
 constexpr int kPartial = kTaps * kTM * kTN;  // floats of a partial tile
 constexpr int kQuads = kPartial / 4;
 constexpr int kBatch = 4;              // float4s a thread sums at once
-constexpr int kFlush = 128;            // the longest tensor-core run, steps
-constexpr int kSumBytes = kConsumers * (kTN / 2) * 4;  // the runs' sums
+constexpr int kFlush = 8;              // the longest tensor-core run, steps
 constexpr int kChunk = 32;             // the transpose: 32 x 32 (m, o)
 constexpr int kChunkPitch = kChunk * 9 + 8;  // bf16: 16-byte rows
 
 static_assert(kQuads % kConsumers == 0, "float4 reduce shares");
 static_assert(kChunk * kChunkPitch * 2 <= kRingBytes, "transpose in the ring");
-static_assert(kRingBytes - kSumBytes >= 2 * (kGBytes + kTaps * kBoxBytes),
-              "two stages of the largest step beside the sums");
+static_assert(kRingBytes >= 2 * (kGBytes + kTaps * kBoxBytes),
+              "two stages of the largest step");
 
 // The block whose contiguous range of the U units holds unit u, when G
 // blocks take [b*U/G, (b+1)*U/G).
@@ -292,9 +294,6 @@ wgrad_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
     // Register 4q+e holds tile row (input channel) row0 + 8*(e >= 2),
     // column (output channel) 8q + 2*(lane%4) + (e&1).
     const int row0 = warp * 16 + lane / 4;
-    // The runs' sums, when a segment can be longer than kFlush steps: the
-    // ring's top kSumBytes, element q of thread ct at q * kConsumers + ct.
-    float* sums = reinterpret_cast<float*>(smem + kRingBytes - kSumBytes);
     // A segment's pixel steps: (r1 - r0) * q, plus one for each of its
     // residues below rem (the residues of KT = q * P + rem).
     const int q_steps = a.KT / P;
@@ -314,9 +313,9 @@ wgrad_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
       // The products of at most kFlush steps accumulate in the wgmma
       // registers (the tensor cores' own float32 accumulation loses
       // precision over long runs); a longer segment adds each run into
-      // this thread's float32 sums in shared memory (rounded to nearest),
-      // and takes them back after its last run.
-      float acc[kTN / 2];
+      // this thread's float32 sums (rounded to nearest), and takes them
+      // back after its last run.
+      float acc[kTN / 2], sums[kTN / 2];
 #pragma unroll
       for (int q = 0; q < kTN / 2; ++q) acc[q] = 0.f;
       int held = 0;  // the stage of the previous step
@@ -348,8 +347,7 @@ wgrad_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
           const bool first_run = step + 1 == kFlush;
 #pragma unroll
           for (int q = 0; q < kTN / 2; ++q)
-            sums[q * kConsumers + ct] =
-                first_run ? acc[q] : sums[q * kConsumers + ct] + acc[q];
+            sums[q] = first_run ? acc[q] : sums[q] + acc[q];
         }
       }
       wgmma_wait<0>();
@@ -357,7 +355,7 @@ wgrad_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
       if (lane == 0) mbar_arrive(empty_bar + 8 * held);
       if (steps > kFlush) {
 #pragma unroll
-        for (int q = 0; q < kTN / 2; ++q) acc[q] += sums[q * kConsumers + ct];
+        for (int q = 0; q < kTN / 2; ++q) acc[q] += sums[q];
       }
       u = t_begin + r1;
 
@@ -549,13 +547,7 @@ bool make_plan(int B, int H, int W, int C, int Co, int d, int P, int G,
   if (P < 1 || P > a.KT || G < 1 || G > sms ||
       G > static_cast<long long>(a.T) * P)
     return false;
-  // A segment holds at most min(P, ceil(U / G)) residues of ceil(KT / P)
-  // steps each; past kFlush steps the ring gives its top to the sums.
-  const long long U = static_cast<long long>(a.T) * P;
-  const long long most = min(static_cast<long long>(P), (U + G - 1) / G) *
-                         ((a.KT + P - 1) / P);
-  const int ring = kRingBytes - (most > kFlush ? kSumBytes : 0);
-  a.stages = ring / a.stage_bytes;
+  a.stages = kRingBytes / a.stage_bytes;
   if (a.stages > kMaxStages) a.stages = kMaxStages;
   // Slots block + tile (at most G + T - 1; none when P == 1: whole tiles
   // only), then s9: bf16 (9, C, Co).

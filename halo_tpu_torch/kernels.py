@@ -24,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cuda"
 SOURCES = ("dilated_conv.cu", "dilated_conv_wgrad.cu", "int8_conv.cu",
-           "int8_quant.cu", "radius.cu", "select.cu")
+           "int8_quant.cu", "radius.cu", "region_score.cu", "select.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _lock = threading.Lock()
@@ -46,6 +46,8 @@ _SIGNATURES = {
     "halo_int8_conv": (_P, _P, _P, _P, _P, _I) + (_I,) * 16 + (_F, _F, _P),
     "halo_int8_quantize": (_I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I,
                            _F, _F, _P),
+    "halo_region_score_s1": (_P,) * 12,
+    "halo_region_score_s2": (_P, _I, _P, _P, _P, _LL, _I, _I, _P),
 }
 _RESTYPES = {"halo_dilated_conv3x3_wgrad_workspace": _LL}
 

@@ -137,18 +137,20 @@ def dilated_conv3x3_plain(x, weight, d: int):
 
 
 def wgrad_taps(x, g, d: int):
-    """Weight gradient (Co, C, 3, 3) of the conv in float32: dk[tap] =
-    slab(tap)^T @ g contracted over (B, H, W), each tap one matmul with
-    float32 accumulation and a float32 result
+    """Weight gradient (Co, C, 3, 3) of the conv in float32 (float64 for
+    float64 operands): dk[tap] = slab(tap)^T @ g contracted over (B, H, W),
+    each tap one matmul with float32 accumulation and a float32 result
     (``halo_tpu/ops/conv_grads.py:19``); the caller rounds it."""
     c, co = x.shape[1], g.shape[1]
     gm = g.permute(0, 2, 3, 1).reshape(-1, co)
-    if x.device.type == "cuda" and x.dtype != torch.float32:
+    if x.device.type == "cuda" and x.dtype in (torch.bfloat16, torch.half):
         def contract(a, b):  # bf16 operands, f32 accumulator and result
             return torch.mm(a, b, out_dtype=torch.float32)
     else:
+        acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+
         def contract(a, b):
-            return a.float() @ b.float()
+            return a.to(acc) @ b.to(acc)
     with torch.autocast(x.device.type, enabled=False):
         taps = [contract(slab.t(), gm)
                 for slab in _taps(x.permute(0, 2, 3, 1), d)]

@@ -34,6 +34,52 @@ def _interp_matrix(out_size: int, in_size: int) -> np.ndarray:
     return m
 
 
+@lru_cache(maxsize=64)
+def interp_table(out_size: int, in_size: int) -> np.ndarray:
+    """(4, out) int32 table of ``_interp_matrix``'s rows: the first and last
+    column of each row's nonzero entries (lo, hi; hi = lo where the row has
+    one), then those two entries' float32 bits (w_lo, w_hi = 0 where hi =
+    lo). ``w_lo * x[lo] + w_hi * x[hi]`` is the row's dot product with its
+    zero terms left out; placing w_lo at lo and adding w_hi at hi rebuilds
+    the matrix exactly."""
+    m = _interp_matrix(out_size, in_size)
+    nz = m != 0
+    rows = np.arange(out_size)
+    lo = nz.argmax(axis=1)
+    hi = in_size - 1 - nz[:, ::-1].argmax(axis=1)
+    if not (nz.any(axis=1).all() and (hi - lo <= 1).all()):
+        raise AssertionError("an interpolation row is not one or two "
+                             "neighbouring taps")
+    w_lo = m[rows, lo]
+    w_hi = np.where(hi != lo, m[rows, hi], np.float32(0))
+    return np.stack([lo.astype(np.int32), hi.astype(np.int32),
+                     w_lo.astype(np.float32).view(np.int32),
+                     w_hi.astype(np.float32).view(np.int32)])
+
+
+@lru_cache(maxsize=64)
+def device_table(out_size: int, in_size: int,
+                 device: torch.device) -> torch.Tensor:
+    """``interp_table`` on ``device``, uploaded once per size and reused."""
+    return torch.from_numpy(interp_table(out_size, in_size)).to(device)
+
+
+def resize_by_table(x, rows, cols):
+    """Align-corners resize of an (h, w, C) float32 map by ``device_table``s
+    of its rows and columns: rows first, then columns, each output the sum
+    of two products, each product and the sum rounded apart (three eager
+    ops), as ``csrc/region_score.cu`` computes it."""
+    def taps(t, src, dim):
+        lo, hi = t[0].long(), t[1].long()
+        shape = [1] * src.dim()
+        shape[dim] = -1
+        w_lo = t[2].view(torch.float32).reshape(shape)
+        w_hi = t[3].view(torch.float32).reshape(shape)
+        return (w_lo * src.index_select(dim, lo)
+                + w_hi * src.index_select(dim, hi))
+    return taps(cols, taps(rows, x, 0), 1)
+
+
 _BAND_BLOCK = 128  # output rows per banded block
 
 

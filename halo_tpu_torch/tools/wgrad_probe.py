@@ -1,6 +1,7 @@
 """Where the time of kernel C's weight-gradient kernel goes, on the card:
 
     python -m halo_tpu_torch.tools.wgrad_probe
+    python -m halo_tpu_torch.tools.wgrad_probe --step0 [N]
 
 Builds copies of ``csrc/dilated_conv_wgrad.cu`` beside the library
 (``build/variants/wgrad_<name>/``) that stamp ``%globaltimer`` into a
@@ -26,13 +27,27 @@ one tile (the blocks sweep the image together) and the stream-K plan (P =
 the pixel steps, a contiguous range a block); and cuDNN's wgrad beside
 them. Raises without a CUDA device. To try a change before editing the
 kernel, add a variant to ``VARIANTS``.
+
+``--step0 N`` (default 20) instead repeats step 0 of the recipe's train
+step (``configs/gtav/source_target.yaml``, ``TPU.DENSE_CONV_MODE
+pallas``, source 2x720x1280 and target 2x640x1280, seeded weights
+restored before each repeat, the batch drawn anew from seed + repeat) and
+captures layer3's and layer4's conv2 operands as ``chip_smoke.py`` phase
+``train`` does (the first train-mode call's input, weight and cotangent).
+For each capture it prints the kernel's dk and the float32 reference's
+(``wgrad_taps`` on float32 operands) against the float64 sums
+(``wgrad_taps`` on the bf16 operands widened exactly), in ``bf16_steps``'
+units, with the worst element and its condition (the float64 sum of the
+terms' magnitudes).
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import statistics
 import subprocess
+from pathlib import Path
 
 import torch
 
@@ -132,26 +147,84 @@ def variant_source(name: str) -> str:
 
 def build_variant(name: str):
     """Compile a variant into its own library; returns the ctypes handle."""
-    vdir = kernels.BUILD_DIR.parent / "variants" / f"wgrad_{name}"
-    vdir.mkdir(parents=True, exist_ok=True)
-    (vdir / "dilated_conv_wgrad.cu").write_text(variant_source(name))
-    (vdir / "dilated_conv.cuh").write_text(
-        (kernels.CSRC / "dilated_conv.cuh").read_text())
-    lib = vdir / "libwgrad.so"
-    proc = subprocess.run(
-        [kernels._nvcc(), *kernels.ARCH_FLAGS, "-std=c++17", "-O3",
-         "-Xcompiler", "-fPIC", "-shared", "-o", str(lib),
-         str(vdir / "dilated_conv_wgrad.cu")],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"variant {name}: nvcc failed\n{proc.stderr}")
-    handle = ctypes.CDLL(str(lib))
-    for entry in ("halo_dilated_conv3x3_wgrad_bf16",
-                  "halo_dilated_conv3x3_wgrad_workspace"):
-        fn = getattr(handle, entry)
-        fn.argtypes = list(kernels._SIGNATURES[entry])
-        fn.restype = kernels._RESTYPES.get(entry, ctypes.c_int)
-    return handle
+    return build_sources({f"wgrad_{name}": variant_source(name)})[
+        f"wgrad_{name}"]
+
+
+def build_sources(sources: dict, name: str = "dilated_conv_wgrad.cu",
+                  headers=("dilated_conv.cuh",),
+                  entries=("halo_dilated_conv3x3_wgrad_bf16",
+                           "halo_dilated_conv3x3_wgrad_workspace"),
+                  match: str = "wgrad") -> dict:
+    """Compile each {tag: source of ``name``} (with the ``headers`` of
+    ``csrc/`` beside it) into its own library under
+    ``build/variants/<tag>/``, one ``nvcc`` each, all started together;
+    prints the registers and spills of each kernel whose name holds
+    ``match``; returns {tag: ctypes handle with ``entries`` typed}."""
+    jobs = {}
+    for tag, src in sources.items():
+        vdir = kernels.BUILD_DIR.parent / "variants" / tag
+        vdir.mkdir(parents=True, exist_ok=True)
+        (vdir / name).write_text(src)
+        for header in headers:
+            (vdir / header).write_text((kernels.CSRC / header).read_text())
+        lib = vdir / "libvariant.so"
+        jobs[tag] = (lib, subprocess.Popen(
+            [kernels._nvcc(), *kernels.ARCH_FLAGS, "-std=c++17", "-O3",
+             "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-shared", "-o",
+             str(lib), str(vdir / name)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    handles = {}
+    for tag, (lib, proc) in jobs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"variant {tag}: nvcc failed\n{out}")
+        # the kernel's registers and spills (ptxas prints them after the
+        # entry's name)
+        lines = out.splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry" in line and match in line:
+                print(f"{tag}: " + " | ".join(
+                    x.split("ptxas info    :")[-1].strip()
+                    for x in lines[i + 1:i + 3]), flush=True)
+        handle = ctypes.CDLL(str(lib))
+        for entry in entries:
+            fn = getattr(handle, entry)
+            fn.argtypes = list(kernels._SIGNATURES[entry])
+            fn.restype = kernels._RESTYPES.get(entry, ctypes.c_int)
+        handles[tag] = handle
+    return handles
+
+
+FLUSH = "constexpr int kFlush = "
+
+
+def flush_source(steps: int) -> str:
+    """The kernel's source with tensor-core runs of at most ``steps`` pixel
+    steps (each run then added into the float32 sums, rounded to
+    nearest)."""
+    src = (kernels.CSRC / "dilated_conv_wgrad.cu").read_text()
+    i = src.index(FLUSH) + len(FLUSH)
+    return src[:i] + str(steps) + src[src.index(";", i):]
+
+
+def variant_dk(lib, xh, gh, d: int, plan):
+    """dk of a variant library on NHWC bf16 x and cotangent, as
+    ``ops/dilated_conv._wgrad`` calls the library."""
+    b, h, w, c = xh.shape
+    co = gh.shape[3]
+    nbytes = lib.halo_dilated_conv3x3_wgrad_workspace(
+        b, h, w, c, co, d, plan.period, plan.grid)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=xh.device)
+    flags = torch.zeros(2 * plan.tiles + 2, dtype=torch.int32,
+                        device=xh.device)
+    dk = torch.empty((co, c, 3, 3), dtype=torch.bfloat16, device=xh.device)
+    err = lib.halo_dilated_conv3x3_wgrad_bf16(
+        xh.data_ptr(), gh.data_ptr(), dk.data_ptr(), ws.data_ptr(), nbytes,
+        flags.data_ptr(), flags.numel(), b, h, w, c, co, d, plan.period,
+        plan.grid, kernels.current_stream(xh.device))
+    kernels.check(err, "halo_dilated_conv3x3_wgrad_bf16")
+    return dk
 
 
 def _operands(shape, gen, device):
@@ -254,6 +327,190 @@ def main(variants=tuple(VARIANTS)):
     print(smi.stdout.strip(), flush=True)
 
 
+def bf16_steps(got, want) -> tuple:
+    """(largest |got - want| in bf16 steps of the larger magnitude, the same
+    after forgiving 1e-5 of max|want|), in float64: near zero the order of
+    the float32 sums decides which way a bf16 output rounds."""
+    got, want = got.double(), want.double()
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(2.0 ** -126)
+    step = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    diff = (got - want).abs()
+    floor = 1e-5 * float(want.abs().max())
+    return (float((diff / step).max()),
+            float(((diff - floor).clamp_min(0) / step).max()))
+
+
+def dk_worst(dk, want, x, g, d: int) -> str:
+    """The element of ``dk`` farthest beyond the floor from ``want``: its
+    (co, c, ky, kx), the kernel's, float32 reference's and float64 sums'
+    values, and its condition, the float64 sum of |x| |g| over its terms."""
+    ref32 = dc.wgrad_taps(x.float(), g.float(), d)
+    ref64 = dc.wgrad_taps(x.double(), g.double(), d)
+    got, want = dk.double(), want.double()
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(2.0 ** -126)
+    step = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    beyond = ((got - want).abs() - 1e-5 * float(want.abs().max())) / step
+    at = tuple(int(i) for i in torch.unravel_index(
+        beyond.argmax(), tuple(dk.shape)))
+    cond = dc.wgrad_taps(x.double().abs(), g.double().abs(), d)[at]
+    return (f"worst (co, c, ky, kx) {at}: kernel {float(dk[at]):.9e}, "
+            f"float32 reference {float(ref32[at]):.9e}, float64 "
+            f"{float(ref64[at]):.9e}, sum of |terms| {float(cond):.9e}, "
+            f"max|dk| {float(ref64.abs().max()):.9e}")
+
+
+def kernel_dk(x, w, g, d: int):
+    """dk of kernel C through autograd, as ``chip_smoke.check_conv`` takes
+    it (the weight-gradient kernel on the bf16 operands)."""
+    xk = x.detach().clone().requires_grad_(True)
+    wk = w.detach().clone().requires_grad_(True)
+    dc.dilated_conv3x3(xk, wk, d).backward(g)
+    return wk.grad
+
+
+def _synthetic_batches(cfg, gen, device):
+    """A source and a target batch at the recipe's train sizes: normalised
+    noise images, source labels of 19 classes, a target mask with ~1% of
+    its pixels labelled (as after a round), the rest ignored."""
+    def batch(size, mask):
+        w, h = size
+        b = int(cfg.SOLVER.BATCH_SIZE)
+        img = torch.randn((b, h, w, 3), generator=gen, device=device)
+        lab = torch.randint(0, 19, (b, h, w), generator=gen, device=device)
+        out = {"img": img, "label": lab}
+        if mask:
+            keep = torch.rand((b, h, w), generator=gen, device=device) < 0.01
+            out["mask"] = torch.where(keep, lab, torch.full_like(lab, 255))
+        return out
+    return {"source": batch(cfg.INPUT.SOURCE_INPUT_SIZE_TRAIN, False),
+            "target": batch(cfg.INPUT.TARGET_INPUT_SIZE_TRAIN, True)}
+
+
+def step0(runs: int = 20, seed: int = 0, device=None, opts=(),
+          flushes=()):
+    """Repeat step 0 of the recipe's ``pallas`` train step ``runs`` times
+    and hold each capture's dk against the float64 sums (module doc);
+    ``opts`` are config overrides (KEY VALUE ...), ``device`` "cpu"
+    rehearses it (small ``INPUT.*_SIZE_TRAIN`` in ``opts``). ``flushes``
+    adds, for each n, a copy of the kernel built with tensor-core runs of
+    at most n steps (``flush_source``), held against the float64 sums on
+    the same captures and timed at ``SHAPES`` beside the library's
+    kernel. Returns the count of captures beyond the bound for each
+    comparison."""
+    from ..config import get_default_cfg
+    from ..engine.optim import build_optimizer
+    from ..engine.steps import make_train_step
+    from ..models import build_segmentor
+    from ..models.layers import DilatedConv3x3
+
+    device = resolve_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device.type == "cuda":
+        kernels.load()
+    cfg = get_default_cfg()
+    cfg.set_new_allowed(True)
+    cfg.merge_from_file(str(Path(__file__).resolve().parents[2] / "configs"
+                            / "gtav" / "source_target.yaml"))
+    cfg.merge_from_list(["TPU.DENSE_CONV_MODE", "pallas", "SEED", str(seed),
+                         *opts])
+    model = build_segmentor(cfg, device=device,
+                            generator=torch.Generator().manual_seed(seed))
+    model.train()
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    optimizer, _, _ = build_optimizer(cfg, model)
+    train_step = make_train_step(cfg, model, optimizer, "source_target")
+    captured = {}
+
+    def capture(module, inputs, output):
+        if not (isinstance(module, DilatedConv3x3) and module.training
+                and torch.is_grad_enabled()
+                and module.in_channels not in captured):
+            return
+        entry = {"x": inputs[0].detach().to(torch.bfloat16).clone(),
+                 "w": module.weight.detach().to(torch.bfloat16).clone(),
+                 "d": module.dilation[0]}
+        captured[module.in_channels] = entry
+        output.register_hook(
+            lambda g: entry.__setitem__("g", g.detach().clone()))
+
+    handle = torch.nn.modules.module.register_module_forward_hook(capture)
+    fails = {"kernel vs float64": 0, "float32 vs float64": 0,
+             "kernel vs float32 (the check before)": 0}
+    fails.update({f"runs of {n} vs float64": 0 for n in flushes})
+    fails.update({f"runs of {n} vs float32": 0 for n in flushes})
+    worst = {k: 0.0 for k in fails}
+    libs = build_sources({f"wgrad_flush{n}": flush_source(n)
+                          for n in flushes}) if flushes else {}
+    sms = (torch.cuda.get_device_properties(device).multi_processor_count
+           if device.type == "cuda" else 1)
+    try:
+        for i in range(runs):
+            model.load_state_dict(state)
+            captured.clear()
+            gen = torch.Generator(device=device).manual_seed(seed + i)
+            train_step(_synthetic_batches(cfg, gen, device))
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            for name, e in (("layer3", captured[256]),
+                            ("layer4", captured[512])):
+                x, g, d = e["x"], e["g"], e["d"]
+                dk = kernel_dk(x, e["w"], g, d)
+                ref32 = dc.wgrad_taps(x.float(), g.float(), d)
+                ref64 = dc.wgrad_taps(x.double(), g.double(), d)
+                rows = {"kernel vs float64": bf16_steps(dk, ref64),
+                        "float32 vs float64": bf16_steps(ref32, ref64),
+                        "kernel vs float32 (the check before)":
+                            bf16_steps(dk, ref32)}
+                if flushes:
+                    b, c, h, w = x.shape
+                    co = g.shape[1]
+                    plan = dc.wgrad_plan(b, h, w, c, co, d, sms)
+                    xh = x.permute(0, 2, 3, 1).contiguous()
+                    gh = g.permute(0, 2, 3, 1).contiguous()
+                for n in flushes:
+                    vk = variant_dk(libs[f"wgrad_flush{n}"], xh, gh, d, plan)
+                    rows[f"runs of {n} vs float64"] = bf16_steps(vk, ref64)
+                    rows[f"runs of {n} vs float32"] = bf16_steps(vk, ref32)
+                line = []
+                for k, (strict, floored) in rows.items():
+                    worst[k] = max(worst[k], floored)
+                    fails[k] += floored > 1.0
+                    line.append(f"{k} {strict:.2f} ({floored:.2f} beyond "
+                                "1e-5 of max)")
+                print(f"step0 run {i} {name} conv2 d={d}: " + "; ".join(line),
+                      flush=True)
+                if rows["kernel vs float64"][1] > 1.0 or rows[
+                        "kernel vs float32 (the check before)"][1] > 1.0:
+                    for k, want in (("float64", ref64), ("float32", ref32)):
+                        print(f"  against {k}: " + dk_worst(dk, want, x, g, d),
+                              flush=True)
+    finally:
+        handle.remove()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for shape in (SHAPES if flushes else ()):
+        b, c, co, h, w, d = shape
+        xh, gh = _operands(shape, gen, device)
+        plan = dc.wgrad_plan(b, h, w, c, co, d, sms)
+        times = {"library": _cuda_ms(lambda: dc._wgrad(xh, gh, d))}
+        for n in flushes:
+            times[f"runs of {n}"] = _cuda_ms(
+                lambda n=n: variant_dk(libs[f"wgrad_flush{n}"], xh, gh, d,
+                                       plan))
+        print(f"step0 dk ms {shape}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in times.items()), flush=True)
+    print(f"step0: {runs} runs x 2 captures; captures beyond one bf16 step "
+          "past 1e-5 of max|dk|: " + ", ".join(
+              f"{k} {v} (worst {worst[k]:.2f})" for k, v in fails.items()),
+          flush=True)
+    if device.type == "cuda":
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True)
+        print(smi.stdout.strip(), flush=True)
+    return fails
+
+
 def _cuda_ms(fn, iters: int = 50) -> float:
     """Median ms of fn over ``iters`` calls, each between its own pair of
     CUDA events, queued behind a spin kernel so the device runs them back
@@ -273,4 +530,17 @@ def _cuda_ms(fn, iters: int = 50) -> float:
 
 
 if __name__ == "__main__":
-    main()
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--step0", type=int, nargs="?", const=20,
+                        metavar="N", help="repeat step 0 of the train step "
+                        "N times and hold dk against float64 sums")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--flush", type=int, nargs="*", default=(),
+                        metavar="STEPS", help="with --step0: also copies "
+                        "of the kernel with tensor-core runs of at most "
+                        "STEPS pixel steps, held and timed beside it")
+    args = parser.parse_args()
+    if args.step0:
+        step0(args.step0, args.seed, flushes=tuple(args.flush))
+    else:
+        main()

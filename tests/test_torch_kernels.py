@@ -10,7 +10,7 @@ import math
 import pytest
 import torch
 
-from halo_tpu_torch.active import cuda_radius, cuda_select
+from halo_tpu_torch.active import cuda_radius, cuda_score, cuda_select
 from halo_tpu_torch.active import selection as tsel
 
 pytestmark = pytest.mark.cuda
@@ -44,6 +44,131 @@ def test_radius_matches_plain(gen, shape, dtype):
     want = cuda_radius.radius_map_reference(x)
     assert cuda_radius.launches == before + 1
     torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+def _score_inputs(gen, lhw, ehw, classes=19, width=64, ldtype=torch.float32,
+                  nchw=False):
+    """Logits (h, w, classes) and a float32 ball embedding (h2, w2, width);
+    with ``nchw`` both are channel-last views of NCHW buffers, as an
+    elementwise op on a permuted head output leaves them."""
+    lg = (torch.randn((1, classes) + tuple(lhw), generator=gen,
+                      device="cuda") * 3.0).to(ldtype)
+    em = torch.randn((1, width) + tuple(ehw), generator=gen, device="cuda")
+    r = 0.95 * torch.rand((1, 1) + tuple(ehw), generator=gen, device="cuda")
+    em = em / em.norm(dim=1, keepdim=True) * r
+    lg, em = lg[0].permute(1, 2, 0), em[0].permute(1, 2, 0)
+    if not nchw:
+        lg, em = lg.contiguous(), em.contiguous()
+    return lg, em
+
+
+@pytest.mark.parametrize("native,lhw,ehw,kw", [
+    ((64, 128), (40, 80), (10, 20), {}),                  # one row of tiles
+    ((100, 150), (37, 61), (11, 17), {}),                 # ragged tiles
+    ((100, 150), (37, 61), (11, 17), {"score_dtype": torch.float32}),
+    ((48, 70), (48, 70), (48, 70), {}),                   # input = native
+    ((33, 65), (1, 7), (2, 3), {}),                       # in_size 1
+    ((80, 96), (20, 24), (5, 6), {"halo": 2}),            # window 5x5
+    ((80, 96), (20, 24), (5, 6), {"halo": 8}),            # the largest
+    ((80, 96), (20, 24), (5, 6), {"halo": 0}),            # pixel_entropy
+    ((80, 96), (20, 24), (5, 6), {"normalize": False}),
+    ((80, 96), (20, 24), (5, 6), {"maps": True}),         # S1 alone
+    ((80, 96), (20, 24), (5, 6), {"c": 2.0}),
+])
+def test_region_score_matches_plain(gen, native, lhw, ehw, kw):
+    """S1 + S2 (``region_score``) or S1 alone (``region_maps``) against
+    their plain version: the maps within 1e-5, S1 once and S2 once a
+    ``region_score`` call."""
+    kw = dict(kw)
+    maps = kw.pop("maps", False)
+    lg, em = _score_inputs(gen, lhw, ehw)
+    em = em / math.sqrt(kw.get("c", 1.0))  # inside the ball of radius 1/sqrt c
+    s1, s2 = cuda_score.launches, cuda_score.launches_s2
+    if maps:
+        got = cuda_score.region_maps(lg, em, native, **kw)
+        want = cuda_score.region_maps_plain(lg, em, native, **kw)
+    else:
+        got = cuda_score.region_score(lg, em, native, **kw)
+        want = cuda_score.region_score_plain(lg, em, native, **kw)
+    torch.cuda.synchronize()
+    assert cuda_score.launches == s1 + 1
+    assert cuda_score.launches_s2 == s2 + (not maps)
+    for g, w in zip(got, want):
+        assert g.shape == native and torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-5)
+
+
+def test_region_score_hyper_routes_s1(gen):
+    """Purity 'hyper' through the scorer: S1 alone (its raw maps finished
+    by the histogram tail in torch), against the CPU route."""
+    from halo_tpu_torch.active.scoring import fused_upsample_region_score
+    lg, em = _score_inputs(gen, (20, 24), (5, 6))
+    s1, s2 = cuda_score.launches, cuda_score.launches_s2
+    kw = dict(pur_type="hyper", K=10, score_dtype=torch.float32)
+    got = fused_upsample_region_score(lg, em, (80, 96), **kw)
+    torch.cuda.synchronize()
+    assert (cuda_score.launches, cuda_score.launches_s2) == (s1 + 1, s2)
+    unc, rad = cuda_score.region_maps(lg, em, (80, 96),
+                                      score_dtype=torch.float32)
+    unc_p, rad_p = cuda_score.region_maps_plain(lg, em, (80, 96),
+                                                score_dtype=torch.float32)
+    torch.testing.assert_close(unc, unc_p, rtol=0, atol=1e-5)
+    torch.testing.assert_close(rad, rad_p, rtol=0, atol=1e-5)
+    assert all(g.shape == (80, 96) and torch.isfinite(g).all() for g in got)
+
+
+@pytest.mark.parametrize("ldtype,nchw,classes,width", [
+    (torch.bfloat16, False, 19, 64),   # a Euclidean head's bf16 logits
+    (torch.float32, True, 19, 64),     # channel-last views of NCHW
+    (torch.float32, False, 16, 512),   # SYNTHIA's classes, wide: chunks
+    (torch.bfloat16, True, 5, 3),
+])
+def test_region_score_layouts(gen, ldtype, nchw, classes, width):
+    lg, em = _score_inputs(gen, (30, 50), (10, 17), classes, width, ldtype,
+                           nchw)
+    got = cuda_score.region_score(lg, em, (70, 130))
+    want = cuda_score.region_score_plain(lg, em, (70, 130))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-5)
+
+
+def test_region_score_raw_maps(gen):
+    """The kernel's own entropy (pixel_entropy, not normalised) within 2e-6
+    relative to the larger of itself and log(sum e^v) / log 19 (a
+    near-certain pixel's small entropy is cancelled from a large log s, so
+    the order of the channel sums moves it by more than 2e-6 of itself)
+    and its radius in t = tanh(r/2) within 1e-6, bf16 and float32 score
+    dtype; two calls give the same bits."""
+    from halo_tpu_torch.ops.resize import device_table, resize_by_table
+    lg, em = _score_inputs(gen, (64, 128), (16, 32))
+    for dtype in (torch.bfloat16, torch.float32):
+        kw = dict(score_dtype=dtype, halo=0)
+        ent, rad = cuda_score.region_maps(lg, em, (103, 205), **kw)
+        ent_p, rad_p = cuda_score.region_maps_plain(lg, em, (103, 205),
+                                                    **kw)
+        up = resize_by_table(lg, device_table(103, 64, lg.device),
+                             device_table(205, 128, lg.device))
+        lse = torch.logsumexp(up.to(dtype).float().clamp(-60, 60), -1)
+        scale = torch.maximum(ent_p.abs(), lse.abs() / math.log(19.0))
+        assert float(((ent - ent_p).abs() / scale).max()) <= 2e-6
+        torch.testing.assert_close(torch.tanh(rad / 2),
+                                   torch.tanh(rad_p / 2), rtol=0, atol=1e-6)
+        again = cuda_score.region_maps(lg, em, (103, 205), **kw)
+        assert torch.equal(again[0], ent) and torch.equal(again[1], rad)
+
+
+def test_region_score_refuses(gen):
+    lg, em = _score_inputs(gen, (8, 8), (4, 4))
+    with pytest.raises(ValueError, match="outside the kernel"):
+        cuda_score.region_score(lg, em, (16, 16), halo=9)
+    with pytest.raises(ValueError, match="shared memory"):  # 8x downsample
+        cuda_score.region_score(lg.repeat(32, 32, 1), em, (16, 16))
+    with pytest.raises(ValueError, match="needs an embedding"):
+        cuda_score.region_score(lg, None, (16, 16))
+    with pytest.raises(TypeError, match="score dtype"):
+        cuda_score.region_score(lg, em, (16, 16), score_dtype=torch.half)
+    with pytest.raises(ValueError, match="empty"):
+        cuda_score.region_score(lg, em, (0, 16))
 
 
 @pytest.mark.parametrize("h,w", [(80, 160), (160, 320)])

@@ -165,3 +165,20 @@ def test_probe_variants_apply_to_the_kernel_source(name):
     assert ("tma_load_4d(dst" in src) == (name != "noload")
     assert ("wgmma_m64n128k16<1, 1>(acc" in src) == (name != "nomma")
     assert (src.count("it_ % a.stages") == 2) == (name == "divide")
+
+
+
+@pytest.mark.parametrize("steps", [1, 8, 32])
+def test_probe_flush_variant_edits_the_run_length(steps):
+    """The step-0 mode's copies of the kernel differ from it in the
+    length of a tensor-core run alone."""
+    from halo_tpu_torch.tools import wgrad_probe
+    src = (wgrad_probe.kernels.CSRC / "dilated_conv_wgrad.cu").read_text()
+    got = wgrad_probe.flush_source(steps)
+    changed = [(a, b) for a, b in zip(src.splitlines(), got.splitlines())
+               if a != b]
+    assert len(got.splitlines()) == len(src.splitlines())
+    assert len(changed) <= 1
+    assert f"constexpr int kFlush = {steps};" in got
+    if changed:
+        assert changed[0][0].startswith(wgrad_probe.FLUSH)
